@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) through CAM's main path
-on one NVIDIA GPU, and hold its CUDA kernels against their plain versions.
+and the LM serving path on one NVIDIA GPU, and hold its five CUDA kernels
+against their plain versions.
 
 Run from the root of a checkout::
 
@@ -11,29 +12,49 @@ prints its last line):
 
 1. device and build — ``nvidia-smi`` name and power limit, the kernels
    built from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
-2. kernels vs plain versions at small shapes, every variant;
+2. kernels vs plain versions at small shapes, every variant (attention:
+   causal and not, float32 and bfloat16, GQA 1:1 to 8:1, ragged lengths,
+   head_dim 64 and 128; Che sums at N in {1, 1000, 100,003}, K in {1, 8});
 3. the main path at the paper's §VII-A setup with one cut (20M books keys
    instead of 200M): 1M w4 point queries, 4 KiB pages, 256 keys per page,
    a 12.8 MiB budget (the paper's 128 MiB scaled by the same 1/10), LRU —
    ``TuningSession.tune`` for PGM and RMI, a multi-policy tune, and
    ``CostSession.estimate_grid`` on a mixed workload (points + a sorted
-   range stream + updates).  Launch counters are zeroed just before and
-   read just after;
+   range stream + updates); then the Che path: ``hit_rate_lru(
+   use_kernel=True)`` on every (row, capacity) of the PGM tune's profile
+   (78,125 pages), held to the bisection path.  Launch counters are zeroed
+   just before each path and read just after;
 4. kernels vs plain versions at the main path's shapes (every variant),
    with CUDA-event times, the plain version's time, the card's lower bound
    and, where one PyTorch call computes the same function, its time;
 5. the main path again through the host executor on the same card, and a
-   trace replay of the chosen PGM and RMI configurations (q-error < 1.4).
+   trace replay of the chosen PGM and RMI configurations (q-error < 1.4);
+6. the serving path: yi-34b at full width and depth (bf16 weights from a
+   seeded generator, all 60 layers), batch 4, a 1,024-token prompt, 32
+   greedy tokens under ``Recipe(attn_impl="pallas")`` — prefill through
+   ``flash_attention`` once a layer, every decode step through
+   ``decode_attention`` once a layer.  A second, identical generate holds
+   every one of those calls against the plain version on the layer's own
+   inputs (within one bfloat16 ulp of the call's largest output), so
+   kernel error is judged apart from what sixty bf16 layers make of it.
+   End to end the path is held against the same engine under
+   ``attn_impl="blockwise"``: prefill logits within 2e-2 of their
+   max-abs, and the first generated token equal up to ties (where the
+   tokens differ, the plain path's logits of the two may lie no further
+   apart than the plain path moves its own logits under 512-key blocks).
+   Then the CAM KV-pool plan line of ``repro_torch.launch.serve``; the
+   attention kernels are timed at the shapes this run gave them.
 
 The line before the last is the per-kernel JSON summary; the last line is
-``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3
-and 5 on the CPU at a smaller ``--keys``/``--queries`` and exits non-zero
-without a result.
+``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3, 5
+and 6 on the CPU (6 on ``reduced(yi-34b)``) at a smaller
+``--keys``/``--queries`` and exits non-zero without a result.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -46,6 +67,7 @@ PAPER_KEYS = 200_000_000
 PAPER_BUDGET_MIB = 128.0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 Q_ERROR_BOUND = 1.4
 POLICIES = ("lru", "fifo", "lfu")
 
@@ -82,9 +104,9 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -508,6 +530,490 @@ def summarize(results):
 
 
 # ---------------------------------------------------------------------------
+# Attention and Che kernels: small checks, work counts, library calls
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # tests/test_kernels.py
+# At the serve path's shapes kernel and plain version both accumulate in
+# float32 and round once to bfloat16, so they may differ by one bf16 ulp
+# of an output, at most 2**-7 of the call's largest output.
+ATTN_ULP_REL = 2.0 ** -7
+LOGITS_TOL = 2e-2    # serve path vs its plain path, relative to max-abs
+CHE_RTOL, CHE_ATOL = 1e-4, 1e-3
+SERVE_BATCH = 4
+
+
+def _normal(torch, np, rng, shape, dtype, dev):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                           device=dev).to(dtype)
+
+
+def _dtype_name(torch, dtype):
+    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+
+def compare_attention(torch, name, out, ref, dtype):
+    """Max |out - ref|, held to the JAX package's tolerance (atol + rtol)."""
+    tol = ATTN_TOL[_dtype_name(torch, dtype)]
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(bool((diff <= tol + tol * ref.float().abs()).all()),
+          f"{name} {dtype}: max |d| {err:.3g} over tolerance {tol:g}")
+    return err
+
+
+def ulp_stats(torch, out, ref):
+    """(max |out - ref|, max |ref|, mean |ref|) as one device tensor."""
+    r = ref.float().abs()
+    return torch.stack([(out.float() - ref.float()).abs().max(), r.max(),
+                        r.mean()])
+
+
+def hold_ulp(name, stats):
+    """Held to ``ATTN_ULP_REL`` of the largest output; returns the numbers
+    the kernels_main line prints."""
+    err, ref_max, ref_mean = (float(x) for x in stats)
+    check(err <= ATTN_ULP_REL * ref_max,
+          f"{name}: max |d| {err:.3g} > 2**-7 x max |ref| {ref_max:.3g}")
+    return dict(max_abs_err=err, max_abs_ref=ref_max, mean_abs_ref=ref_mean,
+                max_err_over_max_ref=err / ref_max if ref_max else 0.0)
+
+
+def small_attention_checks(torch, np, tfa, tda, tche, dev):
+    rng = np.random.default_rng(0)
+    flash, decode, che = [], [], []
+    # (B, S, H, Hk, D): GQA 1:1, 2:1, 7:1 and 8:1, S ragged against the
+    # kernel's 64-row tiles, D 64 and 128
+    for b, s, h, hk, d in ((1, 64, 4, 4, 64), (2, 200, 8, 4, 64),
+                           (1, 300, 14, 2, 128), (2, 97, 8, 1, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q = _normal(torch, np, rng, (b, s, h, d), dtype, dev)
+                k = _normal(torch, np, rng, (b, s, hk, d), dtype, dev)
+                v = _normal(torch, np, rng, (b, s, hk, d), dtype, dev)
+                flash.append(compare_attention(
+                    torch, "flash_attention",
+                    tfa.flash_attention(q, k, v, causal=causal),
+                    tfa.flash_attention_ref(q, k, v, causal=causal), dtype))
+    for b, s, h, hk, d in ((3, 130, 8, 8, 64), (4, 1064, 56, 8, 128),
+                           (2, 515, 16, 2, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _normal(torch, np, rng, (b, 1, h, d), dtype, dev)
+            kc = _normal(torch, np, rng, (b, s, hk, d), dtype, dev)
+            vc = _normal(torch, np, rng, (b, s, hk, d), dtype, dev)
+            lens = torch.as_tensor(rng.integers(1, s + 1, b), dtype=torch.int32,
+                                   device=dev)
+            lens[0] = 0                     # the -1e30 fill: mean of V
+            decode.append(compare_attention(
+                torch, "decode_attention",
+                tda.decode_attention(q, kc, vc, lens),
+                tda.decode_attention_ref(q, kc, vc, lens), dtype))
+    for n in (1, 1000, 100_003):
+        for k in (1, 8):
+            p = rng.zipf(1.3, n).astype(np.float64)
+            probs = torch.as_tensor((p / p.sum()).astype(np.float32),
+                                    device=dev)
+            ts = torch.as_tensor(np.logspace(0, 6, k).astype(np.float32),
+                                 device=dev)
+            out, ref = tche.che_sums(probs, ts), tche.che_sums_ref(probs, ts)
+            err = float((out - ref).abs().max())
+            check(bool(((out - ref).abs() <= CHE_ATOL + CHE_RTOL * ref.abs())
+                       .all()), f"che_sums N={n} K={k}: max |d| {err:.3g}")
+            che.append(err)
+    return dict(flash_cases=len(flash), flash_max_abs_err=max(flash),
+                decode_cases=len(decode), decode_max_abs_err=max(decode),
+                che_cases=len(che), che_max_abs_err=max(che))
+
+
+def flash_work(q, k, causal: bool):
+    """(bytes, bf16/f32 operations) of one flash call: q, k, v read once,
+    out written once; 4·D operations per (query, key) pair the mask keeps."""
+    b, sq, h, d = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    nbytes = (2 * b * sq * h * d + 2 * b * skv * hk * d) * q.element_size()
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    return float(nbytes), float(4 * b * h * d * pairs)
+
+
+def decode_work(q, kc, lengths):
+    """(bytes, operations) of one decode call: q, the valid cache rows of
+    every sequence, lengths and out each once; 4·D operations per (query
+    head, valid position)."""
+    b, _, h, d = q.shape
+    s, hk = kc.shape[1], kc.shape[2]
+    valid = float(lengths.clamp(0, s).sum())
+    nbytes = (2 * b * h * d * q.element_size()
+              + 2 * valid * hk * d * kc.element_size() + 4 * b)
+    return float(nbytes), 4.0 * h * d * valid
+
+
+def sdpa_flash(torch, q, k, v, causal):
+    """The one PyTorch call computing flash_attention's function."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True)
+
+
+def sdpa_decode(torch, q, kc, vc, lengths):
+    """The one PyTorch call computing decode_attention's function (for
+    lengths >= 1: a boolean mask of the valid positions)."""
+    mask = (torch.arange(kc.shape[1], device=kc.device)[None]
+            < lengths[:, None])[:, None, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+
+
+# ---------------------------------------------------------------------------
+# The Che path: hit_rate_lru(use_kernel=True) on the PGM profile
+# ---------------------------------------------------------------------------
+
+def che_path(torch, tcm, tche, recorder):
+    """Every (row, capacity) of the main path's PGM tune, through the
+    Che-sums solver and through bisection; launch counter zeroed just
+    before and read just after."""
+    _, call, _ = recorder.price[("lru", False, False)]
+    probs, caps = call["probs"], call["caps_i"].cpu().tolist()
+    nd = call["i32s"][:, 0].cpu().tolist()
+    work = [(r, c) for r in range(probs.shape[0]) for c in caps[r]
+            if 1 <= c < nd[r]]
+    t0 = time.perf_counter()
+    tche.launches = 0
+    h_kernel = [tcm.hit_rate_lru(probs[r], c, use_kernel=True)
+                for r, c in work]
+    launches = tche.launches
+    h_kernel = torch.stack(h_kernel).cpu()
+    seconds = time.perf_counter() - t0
+    h_bisect = torch.stack([tcm.hit_rate_lru(probs[r], c)
+                            for r, c in work]).cpu()
+    err = float((h_kernel - h_bisect).abs().max())
+    check(err <= 1e-4, f"Che path: |h kernel - h bisection| {err:.3g} > 1e-4")
+    # timing operands: the largest row and one pass's 8 candidates
+    row = probs[max(range(probs.shape[0]), key=lambda r: nd[r])].contiguous()
+    ts = torch.logspace(0, 6, 8, device=row.device)
+    return dict(solves=len(work), pages=probs.shape[1], launches=launches,
+                seconds=seconds, max_abs_dh_vs_bisection=err,
+                h_range=[float(h_kernel.min()), float(h_kernel.max())]), \
+        (row, ts)
+
+
+def che_row(torch, tche, operands, launches):
+    row, ts = operands
+    out, ref = tche.che_sums(row, ts), tche.che_sums_ref(row, ts)
+    err = float((out - ref).abs().max())
+    check(bool(((out - ref).abs() <= CHE_ATOL + CHE_RTOL * ref.abs()).all()),
+          f"che_sums at the main path's shape: max |d| {err:.3g}")
+    n, k = row.shape[0], ts.shape[0]
+    b_ms, b_by = bound(4.0 * (n + 2 * k), 3.0 * n * k)
+    ms = cuda_ms(lambda: tche.che_sums(row, ts), reps=50)
+    plain = cuda_ms(lambda: tche.che_sums_ref(row, ts), reps=50)
+    emit({"phase": "kernels_main", "kernel": "che_sums", "shape": [n, k],
+          "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+          "bound_by": b_by})
+    return dict(name="che_sums", route="cuda",
+                source="src/repro_torch/kernels/csrc/che_sums.cu",
+                replaces="src/repro/kernels/che_solver.py:65",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# The serving path: yi-34b at full width
+# ---------------------------------------------------------------------------
+
+class AttentionCheck:
+    """Wraps the flash and decode entry points of ``kernels.ops`` for one
+    generate: every call's kernel output is held against the plain version
+    on the same inputs, and the first call of each is kept (the decode
+    caches cloned: the live ones are rewritten in place) for timing at the
+    serve path's shapes."""
+
+    NAMES = ("flash_attention", "decode_attention")
+
+    def __init__(self, torch, tfa, tda):
+        self.torch = torch
+        self.plain = {"flash_attention": tfa.flash_attention_ref,
+                      "decode_attention": tda.decode_attention_ref}
+        self.first = {}
+        self.stats = {n: [] for n in self.NAMES}
+
+    def install(self, tops):
+        real_f, real_d = tops.flash_attention, tops.decode_attention
+
+        def flash(q, k, v, *, causal=True):
+            out = real_f(q, k, v, causal=causal)
+            self.first.setdefault("flash_attention", (q, k, v, causal))
+            self.stats["flash_attention"].append(ulp_stats(
+                self.torch, out, self.plain["flash_attention"](
+                    q, k, v, causal=causal)))
+            return out
+
+        def decode(q, kc, vc, lengths):
+            out = real_d(q, kc, vc, lengths)
+            if "decode_attention" not in self.first:
+                self.first["decode_attention"] = (
+                    q.clone(), kc.clone(), vc.clone(), lengths.clone())
+            self.stats["decode_attention"].append(ulp_stats(
+                self.torch, out, self.plain["decode_attention"](
+                    q, kc, vc, lengths)))
+            return out
+
+        tops.flash_attention, tops.decode_attention = flash, decode
+        return lambda: (setattr(tops, "flash_attention", real_f),
+                        setattr(tops, "decode_attention", real_d))
+
+    def summary(self):
+        """Per kernel: calls, the worst call's error over its largest
+        output, and the spread of the outputs' sizes."""
+        out = {}
+        for name in self.NAMES:
+            st = self.torch.stack(self.stats[name]).cpu().double()
+            rel = st[:, 0] / st[:, 1].clamp(min=1e-30)
+            worst = int(rel.argmax())
+            out[name] = dict(
+                calls=st.shape[0], max_err_over_max_ref=float(rel[worst]),
+                worst_call=worst, max_abs_err=float(st[:, 0].max()),
+                max_abs_ref_range=[float(st[:, 1].min()),
+                                   float(st[:, 1].max())],
+                mean_abs_ref_range=[float(st[:, 2].min()),
+                                    float(st[:, 2].max())])
+        return out
+
+
+def serve_phase(args, torch, np, dev, on_card, tfa, tda, tops):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.sharding import Recipe
+    from repro_torch.launch.serve import kv_plan_line
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    full = get_config("yi-34b")
+    cfg = full if on_card else reduced(full)
+    batch, prompt_len, new = SERVE_BATCH, args.prompt_len, args.new_tokens
+    out = {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "batch": batch, "prompt": prompt_len,
+           "new_tokens": new}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+    out["init_seconds"] = time.perf_counter() - t0
+    out["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in _leaves(params))
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (batch, prompt_len)).astype(np.int32)
+    max_seq = prompt_len + new + 8
+    engines = {impl: ServeEngine(cfg, params, recipe=Recipe(
+        remat="none", attn_impl=impl), max_seq=max_seq, device=dev)
+        for impl in ("pallas", "blockwise")}
+    # warm-up (cuBLAS handles and heuristics), off the counted run
+    engines["pallas"].generate(prompts[:, :288], max_new_tokens=2)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    tfa.launches = 0
+    tda.launches = 0
+    res = engines["pallas"].generate(prompts, max_new_tokens=new)
+    launches = {"flash_attention": tfa.launches,
+                "decode_attention": tda.launches}
+    out.update(launches=launches, prefill_seconds=res.prefill_seconds,
+               decode_seconds=res.decode_seconds,
+               decode_tokens_per_s=batch * new / res.decode_seconds,
+               decode_ms_per_step=1e3 * res.decode_seconds / new)
+    if on_card:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # the same generate again, every attention call held against the plain
+    # version on that call's own inputs
+    chk = AttentionCheck(torch, tfa, tda)
+    undo = chk.install(tops)
+    try:
+        res_chk = engines["pallas"].generate(prompts, max_new_tokens=new)
+    finally:
+        undo()
+    per_call = chk.summary()
+    ref = engines["blockwise"].generate(prompts, max_new_tokens=min(8, new))
+    lk, lr = res.prefill_logits, ref.prefill_logits
+    rel = float((lk - lr).abs().max() / lr.abs().max())
+    # the plain path against itself in another float32 summation order
+    # (512-key blocks): how far bf16 rounding alone moves these logits
+    self_ref = ServeEngine(cfg, params, recipe=Recipe(
+        remat="none", attn_impl="blockwise", block_kv=512), max_seq=max_seq,
+        device=dev).generate(prompts, max_new_tokens=1)
+    spread = float((self_ref.prefill_logits - lr).abs().max())
+    first = res.tokens[:, prompt_len:prompt_len + 8]
+    first_ref = ref.tokens[:, prompt_len:prompt_len + 8]
+    # step 1 agrees up to ties: where the tokens differ, the plain path's
+    # logits of the two must lie within what the plain path's own
+    # reordering moves a logit
+    rows = np.nonzero(first[:, 0] != first_ref[:, 0])[0]
+    gaps = [float(lr[r, int(first_ref[r, 0])] - lr[r, int(first[r, 0])])
+            for r in rows]
+    out.update(per_call_vs_plain=per_call,
+               check_run_tokens_equal=bool(
+                   (res_chk.tokens == res.tokens).all()),
+               prefill_logits_max_abs=float(lr.abs().max()),
+               prefill_logits_rel_err_vs_blockwise=rel,
+               blockwise_block512_rel_err_vs_blockwise=spread / float(
+                   lr.abs().max()),
+               tokens=first.tolist(), tokens_blockwise=first_ref.tolist(),
+               first_tokens_blockwise512=self_ref.tokens[:, prompt_len]
+               .tolist(),
+               tokens_equal_steps=int((first == first_ref).all(0).cumprod()
+                                      .sum()),
+               step1_differing_rows=rows.tolist(),
+               step1_logit_gaps=gaps, step1_tie_tolerance=spread,
+               blockwise_prefill_seconds=ref.prefill_seconds,
+               kv_plan=kv_plan_line(full, dev))
+    del self_ref
+    if on_card:
+        out["profile"] = profile_serve(torch, engines["pallas"], prompts,
+                                       steps=4)
+    emit(out)                      # the phase's numbers before its checks
+    if on_card:
+        check(launches["flash_attention"] > 0, "flash_attention never "
+                                               "launched on the serve path")
+        check(launches["decode_attention"] > 0, "decode_attention never "
+                                                "launched on the serve path")
+        check(launches["flash_attention"] == cfg.num_layers
+              and launches["decode_attention"] == cfg.num_layers * new,
+              f"serve launches {launches}: expected {cfg.num_layers} flash "
+              f"and {cfg.num_layers * new} decode")
+    for name, pc in per_call.items():
+        check(pc["max_err_over_max_ref"] <= ATTN_ULP_REL,
+              f"{name} on the serve path: call {pc['worst_call']} differs "
+              f"from the plain version by {pc['max_err_over_max_ref']:.3g} "
+              f"of its largest output > 2**-7")
+    check(tuple(lk.shape) == (batch, cfg.vocab_size)
+          and bool(torch.isfinite(lk).all()), "prefill logits not finite")
+    check(rel <= LOGITS_TOL, f"prefill logits vs blockwise: {rel:.3g} > "
+                             f"{LOGITS_TOL}")
+    check(all(g <= spread for g in gaps),
+          f"first generated token differs from blockwise beyond a tie: "
+          f"{first[:, 0]} vs {first_ref[:, 0]}, logit gaps {gaps} > "
+          f"{spread:.3g}")
+    return out, chk.first, launches
+
+
+def profile_serve(torch, engine, prompts, steps: int):
+    """Device time by kernel class over one prefill and ``steps`` decode
+    steps under ``torch.profiler``, and the device's busy share of the
+    profiled wall time (the profiler's host overhead included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, max_new_tokens=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes = {"flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
+               "other": 0.0}
+    top = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:   # kernels only: a host op's
+            continue                             # time repeats its kernels'
+        us = float(evt.self_device_time_total)
+        if us <= 0:
+            continue
+        name = evt.key
+        top.append((us, name[:80], evt.count))
+        if "flash_fwd" in name:
+            classes["flash_attention"] += us
+        elif "decode_fwd" in name:
+            classes["decode_attention"] += us
+        elif any(t in name.lower() for t in ("gemm", "gemv", "cutlass",
+                                             "sm90_xmma", "nvjet")):
+            classes["gemm"] += us
+        else:
+            classes["other"] += us
+    busy = sum(classes.values()) / 1e6
+    top.sort(reverse=True)
+    return {"steps": steps, "wall_seconds": wall,
+            "prefill_seconds": res.prefill_seconds,
+            "decode_seconds": res.decode_seconds,
+            "device_seconds_by_class": {k: v / 1e6 for k, v in
+                                        classes.items()},
+            "device_busy_share": busy / wall if busy else None,
+            "top_kernels": [dict(us=u, name=n, count=c)
+                            for u, n, c in top[:12]]}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def attention_rows(torch, tfa, tda, first, launches):
+    """The flash and decode kernels at the serve path's shapes (each one's
+    first call): error vs the plain version, held to one bf16 ulp of the
+    largest output, CUDA-event times, bound and SDPA's time."""
+    q, k, v, causal = first["flash_attention"]
+    ref = tfa.flash_attention_ref(q, k, v, causal=causal)
+    held = hold_ulp("flash_attention at the serve shape", ulp_stats(
+        torch, tfa.flash_attention(q, k, v, causal=causal), ref))
+    lib = sdpa_flash(torch, q, k, v, causal).transpose(1, 2)
+    err_lib_f = float((lib.float() - ref.float()).abs().max())
+    del ref, lib
+    nbytes, ops = flash_work(q, k, causal)
+    b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S
+                       if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    ms = cuda_ms(lambda: tfa.flash_attention(q, k, v, causal=causal))
+    plain = cuda_ms(lambda: tfa.flash_attention_ref(q, k, v, causal=causal),
+                    reps=3, warmup=1)
+    lib_ms = cuda_ms(lambda: sdpa_flash(torch, q, k, v, causal))
+    emit({"phase": "kernels_main", "kernel": "flash_attention",
+          "shape": {"q": list(q.shape), "kv": list(k.shape),
+                    "dtype": str(q.dtype), "causal": causal},
+          **held, "sdpa_max_abs_err_vs_plain": err_lib_f,
+          "bytes": nbytes, "ops": ops, "ms": ms, "plain_ms": plain,
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    flash_row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:118",
+        launches=launches["flash_attention"],
+        max_abs_err=held["max_abs_err"], ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    q, kc, vc, lengths = first["decode_attention"]
+    ref = tda.decode_attention_ref(q, kc, vc, lengths)
+    held = hold_ulp("decode_attention at the serve shape", ulp_stats(
+        torch, tda.decode_attention(q, kc, vc, lengths), ref))
+    lib = sdpa_decode(torch, q, kc, vc, lengths).transpose(1, 2)
+    err_lib_d = float((lib.float() - ref.float()).abs().max())
+    del ref, lib
+    nbytes, ops = decode_work(q, kc, lengths)
+    b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S
+                       if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    ms = cuda_ms(lambda: tda.decode_attention(q, kc, vc, lengths), reps=50)
+    plain = cuda_ms(lambda: tda.decode_attention_ref(q, kc, vc, lengths),
+                    reps=20)
+    lib_ms = cuda_ms(lambda: sdpa_decode(torch, q, kc, vc, lengths), reps=50)
+    emit({"phase": "kernels_main", "kernel": "decode_attention",
+          "shape": {"q": list(q.shape), "cache": list(kc.shape),
+                    "lengths": lengths.tolist(), "dtype": str(q.dtype)},
+          **held, "sdpa_max_abs_err_vs_plain": err_lib_d, "bytes": nbytes,
+          "ops": ops, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+          "bound_by": b_by, "library_ms": lib_ms})
+    decode_row = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:82",
+        launches=launches["decode_attention"],
+        max_abs_err=held["max_abs_err"], ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return [flash_row, decode_row]
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -517,6 +1023,8 @@ def parse_args(argv):
     ap.add_argument("--queries", type=int, default=1_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--new-tokens", type=int, default=32)
     return ap.parse_args(argv)
 
 
@@ -536,7 +1044,12 @@ def main(argv=None) -> int:
               "kernels need an NVIDIA GPU", file=sys.stderr)
         return 1
     on_card = args.device == "cuda"
+    from repro_torch.core import cache_models as tcm
     from repro_torch.kernels import _build
+    from repro_torch.kernels import che_solver as tche
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ops as tops
     from repro_torch.kernels import price_grid as tpg
     from repro_torch.kernels import profile_grid as tprof
 
@@ -559,7 +1072,8 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda})
         _build.library()
         emit({"phase": "build", "seconds": _build.build_seconds,
-              "built": ["price_grid", "profile_grid"],
+              "built": ["price_grid", "profile_grid", "che_sums",
+                        "flash_attention", "decode_attention"],
               "sources": [str(s.relative_to(ROOT)) for s in _build.SOURCES]})
 
         # ---- 2. kernels vs plain versions, small shapes ------------------
@@ -574,10 +1088,11 @@ def main(argv=None) -> int:
             compare_profile(tprof, synthetic_profile(
                 torch, np, tprof, dev, 3, 4000, 61, 128, exact, seed), exact)
             for seed, exact in ((1, True), (2, False))]
+        attn_small = small_attention_checks(torch, np, tfa, tda, tche, dev)
         sync()
         emit({"phase": "kernels_small", "price_variants": len(small),
               "price_max_abs_err": max(small),
-              "profile_max_abs_err": max(prof_small)})
+              "profile_max_abs_err": max(prof_small), **attn_small})
 
     # ---- 3. the main path --------------------------------------------------
     world = build_world(args, args.device)
@@ -610,11 +1125,23 @@ def main(argv=None) -> int:
         check(launches["profile_grid"] > 0, "profile_grid never launched on "
                                             "the main path")
 
+    # ---- 3b. the Che path on the PGM tune's profile rows -------------------
+    che_operands = None
+    if ("lru", False, False) in recorder.price:
+        che, che_operands = che_path(torch, tcm, tche, recorder)
+        emit({"phase": "che_path", **che})
+        if on_card:
+            check(che["launches"] > 0, "che_sums never launched on the Che "
+                                       "path")
+            launches["che_sums"] = che["launches"]
+
     # ---- 4. kernels vs plain versions at the main path's shapes -----------
     kernels = []
     if on_card:
         kernels = main_shape_kernels(torch, np, tpg, tprof, dev, world, pgm,
                                      recorder, launches)
+        kernels.append(che_row(torch, tche, che_operands,
+                               launches["che_sums"]))
 
     # ---- 5. host executor on the same card, and trace replay --------------
     os.environ["REPRO_ENGINE_EXECUTOR"] = "host"
@@ -633,6 +1160,18 @@ def main(argv=None) -> int:
           "replay_seconds": time.perf_counter() - t0})
     check(np.isfinite([results[n].est_io for n in ("pgm", "rmi", "multi")]
                       ).all(), "non-finite estimates")
+
+    # ---- 6. the serving path: yi-34b at full width -------------------------
+    del world, pgm, rmi, recorder, results, host, che_operands
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    serve, attn_first, serve_launches = serve_phase(
+        args, torch, np, torch.device(args.device), on_card, tfa, tda, tops)
+    print(serve["kv_plan"], flush=True)
+    if on_card:
+        kernels += attention_rows(torch, tfa, tda, attn_first,
+                                  serve_launches)
 
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; no result without a GPU",

@@ -1,10 +1,16 @@
-"""Carry CAM state across from the JAX package: profiles as plain arrays.
+"""Carry state across from the JAX package as plain arrays.
 
-The system's "weights" are its capacity-independent profiles
-(:class:`repro_torch.core.session.GridProfiles`).  :func:`grid_profiles`
-rebuilds one on a torch device from numpy arrays and plain fields — what a
-JAX ``GridProfiles`` holds, read out with ``np.asarray`` — so the same
-profiles can be priced by both engines.  Nothing here imports ``repro``.
+* CAM's "weights" are its capacity-independent profiles
+  (:class:`repro_torch.core.session.GridProfiles`).  :func:`grid_profiles`
+  rebuilds one on a torch device from numpy arrays and plain fields — what
+  a JAX ``GridProfiles`` holds, read out with ``np.asarray`` — so the same
+  profiles can be priced by both engines.
+* A language model's weights are a nested dict of arrays.
+  :func:`params_from_jax` maps the JAX ``init_params`` pytree, read out as
+  numpy, onto the port's dict: the same keys and the same layer-stacked
+  layout.
+
+Nothing here imports ``repro``.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ from repro_torch.core.session import (DEFAULT_TORCH_DEVICE, GridProfiles,
                                       SkippedCandidate, SortedScanPart,
                                       WriteStreamPart, resolve_torch_device)
 
-__all__ = ["grid_profiles"]
+__all__ = ["grid_profiles", "params_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -75,3 +81,20 @@ def grid_profiles(*, knobs: Sequence, counts, totals, dacs, sizes, caps,
         n_queries=int(n_queries),
         wparts=tuple(_write_part(p, dev) for p in wparts)
         if any(p is not None for p in wparts) else ())
+
+
+def params_from_jax(tree, device=DEFAULT_TORCH_DEVICE, dtype=None):
+    """The port's parameter dict from a JAX parameter pytree of numpy arrays.
+
+    ``tree`` is a nested dict (``jax.tree.map(np.asarray, params)``); each
+    leaf becomes a float32 tensor on ``device``, or a ``dtype`` one when
+    given (bfloat16 leaves widen to float32 and cast back exactly).
+    """
+    dev = resolve_torch_device(device)
+
+    def leaf(a):
+        t = torch.as_tensor(np.array(a, np.float32), device=dev)
+        return t if dtype is None else t.to(dtype)
+
+    return {k: params_from_jax(v, dev, dtype) if isinstance(v, Mapping)
+            else leaf(v) for k, v in tree.items()}

@@ -31,6 +31,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.che_solver import che_solve
+
 __all__ = [
     "solve_che_time",
     "hit_rate_lru",
@@ -158,15 +160,15 @@ def solve_che_time(probs, capacity) -> torch.Tensor:
 def hit_rate_lru(probs, capacity, use_kernel: bool = False) -> torch.Tensor:
     """Che's approximation for LRU (Eq. 7).
 
-    ``use_kernel=True`` names the multi-candidate Che-sums kernel, which has
-    not been ported to CUDA yet: it raises instead of running something else.
+    ``use_kernel=True`` solves the characteristic time of a (P,) ``probs``
+    with the multi-candidate Che-sums kernel (``kernels/che_solver.py``: K=8
+    candidates a pass, 16 passes) — its plain version on CPU tensors.
     """
-    if use_kernel:
-        raise NotImplementedError(
-            "hit_rate_lru(use_kernel=True) needs the che_sums kernel, which "
-            "the CUDA port does not have yet; call with use_kernel=False")
     probs = _float(probs)
-    t_c = solve_che_time(probs, capacity)
+    if use_kernel:
+        t_c = che_solve(probs, capacity, k=8, iters=16)
+    else:
+        t_c = solve_che_time(probs, capacity)
     return torch.sum(probs * _che_occ(probs, t_c), dim=-1)
 
 

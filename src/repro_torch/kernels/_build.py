@@ -37,6 +37,10 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "price_grid_launch": [_I] * 7 + [_P] * 15,
     "profile_grid_launch": [_P] * 4 + [_I] * 5 + [_LL, _P, _P, _I, _P],
+    "flash_attention_launch": [_I] * 8 + ([_P] + [_LL] * 3) * 3 + [_P, _P],
+    "decode_attention_launch": [_I] * 7 + [_P, _LL, _LL] + [_P] + [_LL] * 3
+                               + [_P] + [_LL] * 3 + [_P, _P, _P],
+    "che_sums_launch": [_P, _LL, _P, _I, _I, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,111 @@
+"""Shared neural layers: RMSNorm, MLPs, RoPE / M-RoPE, embeddings.
+
+Mirrors ``repro/models/layers.py`` in eager PyTorch.  Weights come in as
+dict leaves.  JAX writes every product as ``jnp.einsum(...,
+preferred_element_type=float32)``; :func:`matmul_f32` is its counterpart:
+the operands meet in their promoted type (a bfloat16 activation against
+float32 weights computes in float32, as JAX promotes) and the float32
+accumulator comes back unrounded.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["matmul_f32", "rms_norm", "swiglu", "gelu_mlp", "rope", "mrope",
+           "take_embedding"]
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (``w`` 2-D) in the promoted type of the two, accumulated
+    and returned in float32.
+
+    Two bfloat16 operands stay bfloat16 on the card (cuBLAS writing its
+    float32 accumulator, ``torch.mm(..., out_dtype=float32)``); on the CPU
+    they widen to float32, where each product is exact.
+    """
+    dt = torch.promote_types(x.dtype, w.dtype)
+    if dt != torch.float32 and x.device.type == "cuda":
+        out = torch.mm(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down, ctx=None):
+    g = matmul_f32(x, w_gate)
+    u = matmul_f32(x, w_up)
+    h = (F.silu(g) * u).to(x.dtype)
+    return matmul_f32(h, w_down).to(x.dtype)
+
+
+def gelu_mlp(x, w_up, w_down, b_up=None, b_down=None, ctx=None):
+    u = matmul_f32(x, w_up)
+    if b_up is not None:
+        u = u + b_up
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(u, approximate="tanh").to(x.dtype)
+    out = matmul_f32(h, w_down)
+    if b_down is not None:
+        out = out + b_down
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    # a Python-float base, as JAX's weakly typed ``theta ** x``: a tensor
+    # built from it would be a blocking host-to-device copy every layer
+    expo = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** expo)
+
+
+def _apply_rot(x, cos, sin):
+    """Split-halves rotation (not the interleaved one), as JAX's."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rope(x, positions, theta: float = 1e6):
+    """x: (B, S, H, D); positions: (B, S) int absolute positions."""
+    d = x.shape[-1]
+    freqs = _rope_freqs(d, theta, x.device)                      # (D/2,)
+    ang = positions[..., None].float() * freqs                   # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return _apply_rot(x.float(), cos, sin).to(x.dtype)
+
+
+def mrope(x, positions_3d, sections, theta: float = 1e6):
+    """Qwen2-VL multimodal RoPE.
+
+    x: (B, S, H, D); positions_3d: (3, B, S) — (temporal, height, width) ids.
+    ``sections`` split the D/2 frequency slots among the three id channels.
+    """
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {sections} must sum to {d // 2}")
+    freqs = _rope_freqs(d, theta, x.device)
+    channel = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))              # (D/2,)
+    pos = positions_3d.float()[channel]                          # (D/2, B, S)
+    ang = torch.movedim(pos, 0, -1) * freqs                      # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return _apply_rot(x.float(), cos, sin).to(x.dtype)
+
+
+def take_embedding(table, tokens, ctx=None):
+    """Token embedding lookup; table (V, D).  One device, so a gather."""
+    return table[tokens]

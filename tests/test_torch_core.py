@@ -182,8 +182,18 @@ def test_hit_rate_single_candidate(policy, cap):
 
 
 def test_hit_rate_lru_kernel_path_raises():
-    with pytest.raises(NotImplementedError, match="che_sums"):
-        tcm.hit_rate_lru(_t(_probs(0)), 8, use_kernel=True)
+    """``use_kernel=True`` (the Che-sums solver, K=8, 16 passes) agrees with
+    JAX's kernel path and with bisection; it raises on batched ``probs``,
+    which the one-row kernel does not take."""
+    for seed, cap in ((0, 8), (1, 60), (2, 200)):
+        p = _probs(seed)
+        h_port = float(tcm.hit_rate_lru(_t(p), cap, use_kernel=True))
+        h_jax = float(jcm.hit_rate_lru(jnp.asarray(p), cap, use_kernel=True))
+        h_bisect = float(tcm.hit_rate_lru(_t(p), cap))
+        assert abs(h_port - h_jax) <= 1e-4 * h_jax
+        assert abs(h_port - h_bisect) <= 1e-4 * h_bisect
+    with pytest.raises(ValueError, match=r"probs \(N,\)"):
+        tcm.hit_rate_lru(_t(np.stack([p, p])), 8, use_kernel=True)
 
 
 @pytest.mark.parametrize("policy", POLICIES)

@@ -97,3 +97,156 @@ def test_profile_grid_kernel_matches_plain(dev):
         else:
             scale = max(1.0, float(cc.abs().max()))
             assert float((cg.cpu() - cc).abs().max()) / scale < 2e-6
+
+
+# ---------------------------------------------------------------------------
+# attention and Che kernels
+# ---------------------------------------------------------------------------
+
+def _tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                           device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,h,hk,d", [
+    (1, 64, 4, 4, 32),       # MHA
+    (2, 128, 4, 2, 64),      # GQA 2:1
+    (2, 96, 8, 1, 64),       # MQA 8:1, ragged against the 64-row tiles
+    (1, 300, 14, 2, 128),    # GQA 7:1 (yi-34b's group), ragged
+    (1, 256, 8, 1, 128),     # 8:1, full head dim
+])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("causal", (True, False))
+def test_flash_attention_kernel_matches_plain(dev, b, s, h, hk, d, dtype,
+                                              causal):
+    from repro_torch.kernels import flash_attention as tfa
+
+    rng = np.random.default_rng(b * s + h + d)
+    q = _normal(rng, (b, s, h, d), dtype, dev)
+    k = _normal(rng, (b, s, hk, d), dtype, dev)
+    v = _normal(rng, (b, s, hk, d), dtype, dev)
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    ref = tfa.flash_attention_ref(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+def test_flash_attention_kernel_reads_strided_views(dev):
+    """q/k/v as head-dim-contiguous views of a fused QKV buffer."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    rng = np.random.default_rng(5)
+    qkv = _normal(rng, (2, 130, 8 + 2 + 2, 64), torch.float32, dev)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = tfa.flash_attention(q, k, v, causal=True)
+    ref = tfa.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,hk,d", [
+    (2, 256, 4, 2, 64),
+    (3, 130, 8, 8, 32),
+    (1, 512, 8, 2, 128),
+    (4, 1064, 56, 8, 128),   # yi-34b's decode step
+])
+@pytest.mark.parametrize("dtype,cache_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+def test_decode_attention_kernel_matches_plain(dev, b, s, h, hk, d, dtype,
+                                               cache_dtype):
+    from repro_torch.kernels import decode_attention as tda
+
+    rng = np.random.default_rng(b * s + h)
+    q = _normal(rng, (b, 1, h, d), dtype, dev)
+    kc = _normal(rng, (b, s, hk, d), cache_dtype, dev)
+    vc = _normal(rng, (b, s, hk, d), cache_dtype, dev)
+    # ragged, including an empty and an over-long sequence
+    lens = [max(1, s // (i + 2)) for i in range(b)]
+    lens[-1] = 0 if b > 1 else s
+    if b > 2:
+        lens[0] = s + 7
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    before = tda.launches
+    out = tda.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert tda.launches == before + 1
+    ref = tda.decode_attention_ref(q, kc, vc, lengths)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("n", (1, 1000, 100_003))
+@pytest.mark.parametrize("k", (1, 8))
+def test_che_sums_kernel_matches_plain(dev, n, k):
+    from repro_torch.kernels import che_solver as tche
+
+    rng = np.random.default_rng(n + k)
+    p = rng.zipf(1.3, n).astype(np.float64)
+    probs = torch.as_tensor((p / p.sum()).astype(np.float32), device=dev)
+    ts = torch.as_tensor(np.logspace(0, 6, k).astype(np.float32), device=dev)
+    before = tche.launches
+    out = tche.che_sums(probs, ts)
+    torch.cuda.synchronize()
+    assert tche.launches == before + 1
+    torch.testing.assert_close(out, tche.che_sums_ref(probs, ts), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_hit_rate_lru_kernel_path_matches_bisection(dev):
+    from repro_torch.core import cache_models as tcm
+    from repro_torch.kernels import che_solver as tche
+
+    rng = np.random.default_rng(3)
+    p = rng.zipf(1.2, 20000).astype(np.float64)
+    probs = torch.as_tensor((p / p.sum()).astype(np.float32), device=dev)
+    for cap in (100.0, 2000.0, 15000.0):
+        before = tche.launches
+        h_kernel = float(tcm.hit_rate_lru(probs, cap, use_kernel=True))
+        assert tche.launches == before + 16
+        h_bisect = float(tcm.hit_rate_lru(probs, cap))
+        assert abs(h_kernel - h_bisect) <= 1e-4 * h_bisect
+
+
+@pytest.mark.parametrize("arch", ("yi-34b", "starcoder2-3b"))
+def test_serve_engine_pallas_path_launches_both_attention_kernels(dev, arch):
+    """A reduced dense model served through the kernels gives the tokens of
+    the plain (blockwise) path; prefill of a 288-token prompt takes the
+    flash kernel once a layer, each decode step the decode kernel."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.sharding import Recipe
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 288)).astype(np.int32)
+    results = {}
+    for impl in ("pallas", "blockwise"):
+        eng = ServeEngine(cfg, params, recipe=Recipe(remat="none",
+                                                     attn_impl=impl),
+                          max_seq=300, device=dev)
+        f0, d0 = tfa.launches, tda.launches
+        results[impl] = eng.generate(prompts, max_new_tokens=4)
+        launched = (tfa.launches - f0, tda.launches - d0)
+        expect = ((cfg.num_layers, 4 * cfg.num_layers) if impl == "pallas"
+                  else (0, 0))
+        assert launched == expect, (impl, launched)
+    a, b = results["pallas"], results["blockwise"]
+    torch.testing.assert_close(a.prefill_logits, b.prefill_logits,
+                               atol=1e-4, rtol=1e-4)
+    assert np.array_equal(a.tokens, b.tokens)

@@ -1,8 +1,8 @@
 """Packaging guarantees of the port.
 
-* Importing every ``repro_torch`` module (and reading ``chip_smoke.py``'s
-  imports) pulls in neither ``jax`` nor the ``repro`` package — checked in
-  a fresh interpreter.
+* Importing every ``repro_torch`` module — the CAM path and the serving
+  path alike — (and reading ``chip_smoke.py``'s imports) pulls in neither
+  ``jax`` nor the ``repro`` package — checked in a fresh interpreter.
 * Entry points default to the card; without one a default-device session
   raises instead of running on the CPU, and a CPU session must be asked
   for.
@@ -30,7 +30,12 @@ def _modules():
 
 def test_port_imports_without_jax_or_repro():
     mods = list(_modules())
-    assert "repro_torch.kernels.price_grid" in mods
+    for name in ("kernels.price_grid", "kernels.che_solver",
+                 "kernels.flash_attention", "kernels.decode_attention",
+                 "kernels.ops", "kernels.ref", "configs.yi_34b",
+                 "distributed.sharding", "models.transformer", "models.model",
+                 "serve.engine", "serve.planner", "launch.serve"):
+        assert "repro_torch." + name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {mods!r}:
@@ -99,3 +104,19 @@ def test_convert_grid_profiles_roundtrip():
     assert prof.sparts[0] is None and prof.sorted_refs(1) == 4.0
     assert prof.write_refs(0) == 6.0 and prof.wpart(1) is None
     assert prof.skipped[0].knob == 32 and prof.caps.dtype == np.int64
+
+
+def test_serve_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.planner import RequestMix, plan_kv_pool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(ARCHS["yi-34b"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg, {})
+    mix = RequestMix(n_requests=4, shared_prefix=64, mean_context=128,
+                     decode_steps=4, kv_bytes_per_token=1024)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        plan_kv_pool(mix, hbm_budget_bytes=2**30, weight_bytes=0.0)
+    assert ServeEngine(cfg, {}, device="cpu").device.type == "cpu"
