@@ -43,7 +43,13 @@ prints its last line):
    tokens differ, the plain path's logits of the two may lie no further
    apart than the plain path moves its own logits under 512-key blocks).
    Then the CAM KV-pool plan line of ``repro_torch.launch.serve``; the
-   attention kernels are timed at the shapes this run gave them.
+   attention kernels are timed at the shapes this run gave them, with
+   their achieved TFLOP/s (flash) and GB/s (decode).
+
+Kernel times are device times: CUDA events around calls queued behind a
+spin kernel, so the host's launch rate does not enter.  Every kernel row
+also gives ``call_ms``, the wall time of back-to-back calls with the host
+included: what a caller pays where launches, not the device, set the pace.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3, 5
@@ -89,19 +95,38 @@ def check(cond, what: str) -> None:
 # Timing and bounds
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+SPIN_CYCLES_PER_S = 2.0e9       # above the H100's 1.98 GHz boost clock
+
+
+def cuda_times(fn, reps: int = 10, warmup: int = 2):
+    """(device ms, wall ms) per call of ``fn``.  Wall: ``reps`` calls back
+    to back, host clock to a synchronize — what a caller pays, host
+    overhead included.  Device: CUDA events around ``reps`` calls queued
+    behind a spin kernel (``torch.cuda._sleep``) that keeps the device
+    busy until the host has queued them all, so the events time the
+    device's work and not the host's launch rate."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2.0 * wall, 1.0) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, 1e3 * wall / reps
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    return cuda_times(fn, reps, warmup)[0]
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_FLOPS_PER_S):
@@ -705,16 +730,16 @@ def che_row(torch, tche, operands, launches):
           f"che_sums at the main path's shape: max |d| {err:.3g}")
     n, k = row.shape[0], ts.shape[0]
     b_ms, b_by = bound(4.0 * (n + 2 * k), 3.0 * n * k)
-    ms = cuda_ms(lambda: tche.che_sums(row, ts), reps=50)
+    ms, call_ms = cuda_times(lambda: tche.che_sums(row, ts), reps=50)
     plain = cuda_ms(lambda: tche.che_sums_ref(row, ts), reps=50)
     emit({"phase": "kernels_main", "kernel": "che_sums", "shape": [n, k],
-          "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-          "bound_by": b_by})
+          "max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain,
+          "bound_ms": b_ms, "bound_by": b_by})
     return dict(name="che_sums", route="cuda",
                 source="src/repro_torch/kernels/csrc/che_sums.cu",
                 replaces="src/repro/kernels/che_solver.py:65",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                launches=launches, max_abs_err=err, ms=ms, call_ms=call_ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -810,8 +835,9 @@ def serve_phase(args, torch, np, dev, on_card, tfa, tda, tops):
     engines = {impl: ServeEngine(cfg, params, recipe=Recipe(
         remat="none", attn_impl=impl), max_seq=max_seq, device=dev)
         for impl in ("pallas", "blockwise")}
-    # warm-up (cuBLAS handles and heuristics), off the counted run
-    engines["pallas"].generate(prompts[:, :288], max_new_tokens=2)
+    # warm-up at the counted run's shapes (cuBLAS handles and heuristics,
+    # the allocator's blocks), off the counted run
+    engines["pallas"].generate(prompts, max_new_tokens=2)
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     tfa.launches = 0
@@ -913,6 +939,7 @@ def profile_serve(torch, engine, prompts, steps: int):
         wall = time.perf_counter() - t0
     classes = {"flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
                "other": 0.0}
+    attention = {}            # the port's attention kernels one by one
     top = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:   # kernels only: a host op's
@@ -922,6 +949,10 @@ def profile_serve(torch, engine, prompts, steps: int):
             continue
         name = evt.key
         top.append((us, name[:80], evt.count))
+        if "flash_fwd" in name or "decode_fwd" in name:
+            short = name.split("::")[-1].split("(")[0]
+            attention[short] = dict(us=us, count=evt.count,
+                                    us_per_launch=us / evt.count)
         if "flash_fwd" in name:
             classes["flash_attention"] += us
         elif "decode_fwd" in name:
@@ -939,6 +970,7 @@ def profile_serve(torch, engine, prompts, steps: int):
             "device_seconds_by_class": {k: v / 1e6 for k, v in
                                         classes.items()},
             "device_busy_share": busy / wall if busy else None,
+            "attention_kernels": attention,
             "top_kernels": [dict(us=u, name=n, count=c)
                             for u, n, c in top[:12]]}
 
@@ -965,7 +997,8 @@ def attention_rows(torch, tfa, tda, first, launches):
     nbytes, ops = flash_work(q, k, causal)
     b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S
                        if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S)
-    ms = cuda_ms(lambda: tfa.flash_attention(q, k, v, causal=causal))
+    ms, call_ms = cuda_times(lambda: tfa.flash_attention(q, k, v,
+                                                         causal=causal))
     plain = cuda_ms(lambda: tfa.flash_attention_ref(q, k, v, causal=causal),
                     reps=3, warmup=1)
     lib_ms = cuda_ms(lambda: sdpa_flash(torch, q, k, v, causal))
@@ -973,15 +1006,17 @@ def attention_rows(torch, tfa, tda, first, launches):
           "shape": {"q": list(q.shape), "kv": list(k.shape),
                     "dtype": str(q.dtype), "causal": causal},
           **held, "sdpa_max_abs_err_vs_plain": err_lib_f,
-          "bytes": nbytes, "ops": ops, "ms": ms, "plain_ms": plain,
-          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+          "bytes": nbytes, "ops": ops, "ms": ms, "call_ms": call_ms,
+          "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+          "tflop_per_s": ops / ms / 1e9,
+          "library_ms": lib_ms, "library_tflop_per_s": ops / lib_ms / 1e9})
     flash_row = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:118",
         launches=launches["flash_attention"],
-        max_abs_err=held["max_abs_err"], ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        max_abs_err=held["max_abs_err"], ms=ms, call_ms=call_ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
     q, kc, vc, lengths = first["decode_attention"]
     ref = tda.decode_attention_ref(q, kc, vc, lengths)
@@ -993,7 +1028,8 @@ def attention_rows(torch, tfa, tda, first, launches):
     nbytes, ops = decode_work(q, kc, lengths)
     b_ms, b_by = bound(nbytes, ops, BF16_FLOPS_PER_S
                        if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S)
-    ms = cuda_ms(lambda: tda.decode_attention(q, kc, vc, lengths), reps=50)
+    ms, call_ms = cuda_times(lambda: tda.decode_attention(q, kc, vc,
+                                                          lengths), reps=50)
     plain = cuda_ms(lambda: tda.decode_attention_ref(q, kc, vc, lengths),
                     reps=20)
     lib_ms = cuda_ms(lambda: sdpa_decode(torch, q, kc, vc, lengths), reps=50)
@@ -1001,15 +1037,20 @@ def attention_rows(torch, tfa, tda, first, launches):
           "shape": {"q": list(q.shape), "cache": list(kc.shape),
                     "lengths": lengths.tolist(), "dtype": str(q.dtype)},
           **held, "sdpa_max_abs_err_vs_plain": err_lib_d, "bytes": nbytes,
-          "ops": ops, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-          "bound_by": b_by, "library_ms": lib_ms})
+          "ops": ops, "ms": ms, "call_ms": call_ms, "plain_ms": plain,
+          "bound_ms": b_ms, "bound_by": b_by, "gb_per_s": nbytes / ms / 1e6,
+          "splits": list(tda.decode_splits(
+              q.shape[0], kc.shape[2], kc.shape[1],
+              torch.cuda.get_device_properties(q.device)
+              .multi_processor_count)),
+          "library_ms": lib_ms, "library_gb_per_s": nbytes / lib_ms / 1e6})
     decode_row = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:82",
         launches=launches["decode_attention"],
-        max_abs_err=held["max_abs_err"], ms=ms, plain_ms=plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        max_abs_err=held["max_abs_err"], ms=ms, call_ms=call_ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     return [flash_row, decode_row]
 
 
@@ -1232,13 +1273,14 @@ def main_shape_kernels(torch, np, tpg, tprof, dev, world, pgm, recorder,
         price_err = max(price_err, err)
         nbytes, ops = price_work(call, flags)
         b_ms, b_by = bound(nbytes, ops)
-        ms = cuda_ms(lambda: run_price(tpg.price_grid, call, flags))
+        ms, call_ms = cuda_times(lambda: run_price(tpg.price_grid, call,
+                                                   flags))
         plain = cuda_ms(lambda: run_price(tpg.price_grid_ref, call, flags),
                         reps=3, warmup=1)
         detail["/".join(map(str, key))] = dict(
             shape=list(call["probs"].shape) + [call["caps_i"].shape[1]],
-            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=err, bytes=nbytes, ops=ops)
+            ms=ms, call_ms=call_ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=err, bytes=nbytes, ops=ops)
     emit({"phase": "kernels_main", "kernel": "price_grid",
           "variants_checked": len(variants) + len(recorder.price),
           "max_abs_err": price_err, "main_path_calls": detail})
@@ -1250,8 +1292,8 @@ def main_shape_kernels(torch, np, tpg, tprof, dev, world, pgm, recorder,
         source="src/repro_torch/kernels/csrc/price_grid.cu",
         replaces="src/repro/kernels/price_grid.py:274",
         launches=launches["price_grid"], max_abs_err=price_err,
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None)
+        ms=head["ms"], call_ms=head["call_ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None)
 
     # profile_grid: the recorded RMI branch-grid call, plus an integer-mass
     # grid of the same shape that must be exact
@@ -1264,7 +1306,7 @@ def main_shape_kernels(torch, np, tpg, tprof, dev, world, pgm, recorder,
     err_exact = compare_profile(tprof, exact_call, exact=True)
     nbytes, adds = profile_work(torch, call)
     b_ms, b_by = bound(nbytes, adds)
-    ms = cuda_ms(lambda: run_profile(tprof.profile_grid, call))
+    ms, call_ms = cuda_times(lambda: run_profile(tprof.profile_grid, call))
     plain = cuda_ms(lambda: run_profile(tprof.profile_grid_ref, call),
                     reps=3, warmup=1)
     library = None
@@ -1277,14 +1319,15 @@ def main_shape_kernels(torch, np, tpg, tprof, dev, world, pgm, recorder,
     emit({"phase": "kernels_main", "kernel": "profile_grid",
           "shape": [k_rows, q, call["pad"]], "lut": list(call["lut"].shape),
           "max_abs_err": err, "integer_mass_max_abs_err": err_exact,
-          "adds": adds, "bytes": nbytes, "ms": ms, "plain_ms": plain,
-          "bound_ms": b_ms, "bound_by": b_by, "library_ms": library})
+          "adds": adds, "bytes": nbytes, "ms": ms, "call_ms": call_ms,
+          "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+          "library_ms": library})
     profile_row = dict(
         name="profile_grid", route="cuda",
         source="src/repro_torch/kernels/csrc/profile_grid.cu",
         replaces="src/repro/kernels/profile_grid.py:134",
         launches=launches["profile_grid"], max_abs_err=max(err, err_exact),
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        ms=ms, call_ms=call_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=library)
     return [price_row, profile_row]
 

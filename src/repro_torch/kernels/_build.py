@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "check", "build_seconds", "SOURCES"]
+__all__ = ["library", "check", "check_aligned", "build_seconds", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -38,8 +38,8 @@ _SIGNATURES = {
     "price_grid_launch": [_I] * 7 + [_P] * 15,
     "profile_grid_launch": [_P] * 4 + [_I] * 5 + [_LL, _P, _P, _I, _P],
     "flash_attention_launch": [_I] * 8 + ([_P] + [_LL] * 3) * 3 + [_P, _P],
-    "decode_attention_launch": [_I] * 7 + [_P, _LL, _LL] + [_P] + [_LL] * 3
-                               + [_P] + [_LL] * 3 + [_P, _P, _P],
+    "decode_attention_launch": [_I] * 9 + [_P, _LL, _LL] + [_P] + [_LL] * 3
+                               + [_P] + [_LL] * 3 + [_P, _P, _P, _P],
     "che_sums_launch": [_P, _LL, _P, _I, _I, _P, _P, _P],
 }
 
@@ -135,3 +135,19 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} at launch ({msg})")
+
+
+def check_aligned(kernel: str, name: str, t) -> None:
+    """Raise unless ``t`` can be read in 16-byte vectors along its last
+    dim: a 16-byte-aligned base and the stride of every other dim longer
+    than 1 a multiple of 16 bytes (the kernels' ``cp.async`` and ``uint4``
+    loads need both)."""
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(
+            st * size % 16 for st, n in zip(t.stride()[:-1], t.shape[:-1])
+            if n > 1):
+        raise ValueError(
+            f"{kernel}: {name} must have a 16-byte-aligned base and strides "
+            f"that are multiples of 16 bytes for the kernel's vector loads, "
+            f"got base % 16 = {t.data_ptr() % 16}, strides {t.stride()} of "
+            f"{size}-byte elements")

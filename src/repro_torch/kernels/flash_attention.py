@@ -14,8 +14,11 @@ float32 softmax and the output in q's type.
   raise.  ``launches`` counts kernel launches.
 
 What bounds it on the H100: 4·B·H·Sq·Skv·D operations (half when causal)
-against the bf16 tensor-core rate; this first kernel computes on the
-float32 CUDA cores and sits far above that bound (``PERF.md``).
+against the bf16 tensor-core rate.  bfloat16 inputs run FlashAttention-2
+on the tensor cores (``mma.sync`` for both products, K/V tiles fed by
+``cp.async``), which needs 16-byte-aligned bases and strides; a view that
+breaks that raises.  float32 inputs keep the CUDA-core kernel: TF32 would
+break the 1e-4 float32 parity.
 
 As in the TPU kernel, causal attention counts query and key positions
 from 0, so it takes Sq == Skv only.
@@ -25,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_aligned
 from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "launches"]
@@ -78,6 +82,9 @@ def _launch(q, k, v, causal: bool):
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention kernel needs the head dim "
                          "contiguous (stride 1)")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_aligned("flash_attention", name, t)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):

@@ -11,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "decode_attention_ref", "che_sums_ref"]
+__all__ = ["flash_attention_ref", "decode_attention_ref",
+           "decode_attention_split_ref", "che_sums_ref"]
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):
@@ -43,6 +44,50 @@ def decode_attention_ref(q, k_cache, v_cache, lengths):
     scores = torch.where(mask[:, None, None], scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, lengths, n_splits: int,
+                               split_len: int):
+    """``decode_attention_ref`` computed as the split-cache kernel does it:
+    per split (positions ``[i * split_len, (i + 1) * split_len)``, the last
+    split to S) a float32 ``(m, l, acc)``, then a merge in split order.
+    Splits wholly past ``min(lengths[b], S)`` (all of S when the length is
+    <= 0) contribute nothing.  The algebra's oracle for the tests; nothing
+    on the main path calls it."""
+    b, _, h, d = q.shape
+    s, hk = k_cache.shape[1], k_cache.shape[2]
+    g = h // hk
+    qg = q.reshape(b, hk, g, d).float()
+    kf, vf = k_cache.float(), v_cache.float()
+    out = torch.zeros((b, hk, g, d), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        length = int(lengths[bi])
+        end = min(length, s) if length > 0 else s
+        parts = []
+        for i in range(n_splits):
+            lo = i * split_len
+            hi = min(s if i == n_splits - 1 else lo + split_len, end)
+            if lo >= hi:
+                continue
+            sc = torch.einsum("kgd,tkd->kgt", qg[bi],
+                              kf[bi, lo:hi]) / math.sqrt(d)
+            if length <= 0:
+                sc = torch.full_like(sc, -1e30)
+            m = sc.amax(dim=-1)
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgt,tkd->kgd", p,
+                                                     vf[bi, lo:hi])))
+        if not parts:
+            continue
+        m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+        num = torch.zeros((hk, g, d), dtype=torch.float32, device=q.device)
+        den = torch.zeros((hk, g), dtype=torch.float32, device=q.device)
+        for m, l, acc in parts:          # fixed order: split 0, 1, ...
+            w = torch.exp(m - m_all)
+            num = num + w[..., None] * acc
+            den = den + w * l
+        out[bi] = num / den[..., None]
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 

@@ -115,6 +115,76 @@ def test_decode_attention_empty_and_overlong_lengths_match_oracle():
                                .expand(4, -1), atol=1e-6, rtol=1e-5)
 
 
+# The split-cache algebra of the decode kernel: per-split (m, l, acc), then
+# a merge in split order, at the split counts the chooser returns.
+@pytest.mark.parametrize("b,hk,g,s,sms", [
+    (4, 8, 7, 1064, 132),     # yi-34b's decode step: 12 splits
+    (1, 1, 1, 4097, 132),     # one (batch, KV head): 64 splits
+    (2, 2, 16, 700, 8),       # g = 16, 6 splits
+    (3, 2, 4, 130, 132),      # 2 splits, the last one longer
+    (32, 8, 2, 300, 132),     # B * Hk = 256: 1 split
+    (16, 8, 2, 300, 132),     # B * Hk = 128: 3 splits
+    (2, 1, 3, 40, 132),       # S < 64: one short split
+])
+def test_decode_split_algebra_matches_ref_and_jax(b, hk, g, s, sms):
+    from repro_torch.kernels.decode_attention import decode_splits
+
+    n_splits, split_len = decode_splits(b, hk, s, sms)
+    rng = np.random.default_rng(b * s + g)
+    jq, tq = _pair(rng, (b, 1, hk * g, 32))
+    jk, tk = _pair(rng, (b, s, hk, 32))
+    jv, tv = _pair(rng, (b, s, hk, 32))
+    ragged = rng.integers(1, s + 1, b).astype(np.int32)
+    # sequence 0 empty, one position, on a split boundary, past the cache;
+    # the others ragged
+    for first in (0, 1, min(split_len, s), s + 7):
+        lens = ragged.copy()
+        lens[0] = first
+        out = tref.decode_attention_split_ref(
+            tq, tk, tv, torch.as_tensor(lens), n_splits, split_len)
+        _close(out, tref.decode_attention_ref(
+            tq, tk, tv, torch.as_tensor(lens)).numpy(), 1e-5)
+        _close(out, jattn.decode_attention(jq, jk, jv, jnp.asarray(lens)),
+               1e-5)
+
+
+@pytest.mark.parametrize("b,hk,s,sms", [
+    (1, 1, 1, 132), (1, 1, 63, 132), (1, 1, 64, 132), (1, 1, 4097, 132),
+    (4, 8, 1064, 132), (32, 8, 1064, 132), (64, 8, 4096, 132),
+    (3, 5, 1000, 7), (1, 2, 200_000, 132),
+])
+def test_decode_splits_fill_the_card_without_short_splits(b, hk, s, sms):
+    from repro_torch.kernels import decode_attention as tda
+
+    n, split_len = tda.decode_splits(b, hk, s, sms)
+    assert 1 <= n <= tda.MAX_SPLITS
+    # every split, the last (which takes the remainder) included, is at
+    # least MIN_SPLIT long, unless one split covers a shorter cache
+    assert split_len >= min(tda.MIN_SPLIT, s)
+    assert s - (n - 1) * split_len >= split_len
+    assert n == 1 or b * hk * n <= tda.CTAS_PER_SM * sms
+    # no more splits would fit both rules
+    assert (n + 1 > s // tda.MIN_SPLIT or b * hk * (n + 1)
+            > tda.CTAS_PER_SM * sms or n + 1 > tda.MAX_SPLITS)
+    if (b, hk, s, sms) == (4, 8, 1064, 132):
+        assert (n, split_len) == (12, 88)     # 384 CTAs at the serve shape
+
+
+def test_vector_load_alignment_check_refuses_misaligned_views():
+    from repro_torch.kernels._build import check_aligned
+
+    buf = torch.zeros((2, 10, 3, 129), dtype=torch.bfloat16)
+    check_aligned("k", "x", torch.zeros((2, 10, 3, 128),
+                                        dtype=torch.bfloat16))
+    check_aligned("k", "x", torch.zeros((1, 1, 1, 32)).expand(3, 5, 2, 32)
+                  [:, :, :, :])
+    with pytest.raises(ValueError, match="16-byte"):
+        check_aligned("k", "x", buf[..., :128])        # row stride 258 B
+    with pytest.raises(ValueError, match="16-byte"):
+        check_aligned("k", "x", torch.zeros(
+            (2, 10, 3, 136), dtype=torch.bfloat16)[..., 1:129])   # base
+
+
 @pytest.mark.parametrize("n", [1, 100, 5000, 70000])
 @pytest.mark.parametrize("k", [1, 4, 8])
 def test_che_sums_matches_jax(n, k):

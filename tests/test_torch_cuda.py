@@ -107,6 +107,12 @@ def _tol(dtype):
     return 2e-2 if dtype == torch.bfloat16 else 1e-4
 
 
+def _one_ulp(dtype):
+    """(atol, rtol) holding a bf16 output elementwise to one ulp of the
+    plain version's (the float32 bound is unchanged)."""
+    return (1e-3, 2**-7) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+
+
 def _normal(rng, shape, dtype, dev):
     return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
                            device=dev).to(dtype)
@@ -182,6 +188,129 @@ def test_decode_attention_kernel_matches_plain(dev, b, s, h, hk, d, dtype,
     ref = tda.decode_attention_ref(q, kc, vc, lengths)
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hk,d,causal", [
+    (1, 1, 1, 4, 4, 128, True),          # one row
+    (2, 63, 63, 14, 2, 128, True),       # GQA 7:1, one ragged Q tile
+    (1, 65, 65, 14, 2, 64, True),        # one row past the first Q tile
+    (1, 127, 127, 8, 1, 32, True),
+    (2, 129, 129, 14, 2, 128, True),     # ragged K/V tile, first causal row
+    (1, 1000, 1000, 14, 2, 128, True),
+    (1, 1000, 1000, 7, 1, 64, False),
+    (2, 65, 200, 14, 2, 128, False),     # non-causal Sq != Skv
+    (1, 1, 777, 8, 2, 64, False),
+    (1, 300, 129, 4, 4, 32, False),
+    (1, 129, 63, 14, 2, 128, False),
+])
+def test_flash_attention_tensor_core_edges(dev, b, sq, skv, h, hk, d, causal):
+    """The bf16 route (mma.sync) at ragged query and key edges, each
+    output within one bf16 ulp of the plain version's."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    rng = np.random.default_rng(b * sq + skv + h + d)
+    q = _normal(rng, (b, sq, h, d), torch.bfloat16, dev)
+    k = _normal(rng, (b, skv, hk, d), torch.bfloat16, dev)
+    v = _normal(rng, (b, skv, hk, d), torch.bfloat16, dev)
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    ref = tfa.flash_attention_ref(q, k, v, causal=causal)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    atol, rtol = _one_ulp(torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_attention_kernels_refuse_misaligned_bf16_views(dev):
+    """16-byte loads need aligned bases and strides: such views raise, and
+    nothing is launched (no fallback)."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import flash_attention as tfa
+
+    qkv = torch.zeros((1, 70, 3, 68), dtype=torch.bfloat16, device=dev)
+    q, k, v = (qkv[:, :, i:i + 1, :64] for i in range(3))   # 408-byte rows
+    before = tfa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(q, k, v, causal=True)
+    cache = torch.zeros((2, 40, 1, 36), dtype=torch.bfloat16, device=dev)
+    kc = cache[..., 1:33]                                    # base + 2 bytes
+    lens = torch.full((2,), 40, dtype=torch.int32, device=dev)
+    q1 = torch.zeros((2, 1, 4, 32), dtype=torch.bfloat16, device=dev)
+    d_before = tda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.decode_attention(q1, kc, kc, lens)
+    assert (tfa.launches, tda.launches) == (before, d_before)
+
+
+# (B, Hk, g, S): S across split boundaries, g 1 / 7 / 16, B * Hk 1 to 256
+DECODE_EDGES = [
+    (1, 1, 1, 1), (1, 1, 7, 63), (1, 1, 16, 64), (2, 1, 7, 65),
+    (1, 2, 1, 127), (2, 4, 16, 129), (1, 1, 7, 4097), (4, 8, 7, 1064),
+    (32, 8, 1, 1064), (32, 8, 7, 100), (64, 4, 2, 700),
+]
+
+
+def test_decode_edge_cases_cover_one_and_many_splits(dev):
+    from repro_torch.kernels import decode_attention as tda
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = {tda.decode_splits(b, hk, s, sms)[0]
+              for b, hk, g, s in DECODE_EDGES}
+    assert 1 in splits and max(splits) > 8
+
+
+@pytest.mark.parametrize("b,hk,g,s", DECODE_EDGES)
+@pytest.mark.parametrize("dtype,cache_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+def test_decode_attention_split_edges(dev, b, hk, g, s, dtype, cache_dtype):
+    """Lengths 0, 1, on a split boundary and past the cache, beside ragged
+    ones, through the split-cache kernel and its combine pass; bf16
+    outputs within one ulp of the plain version's."""
+    from repro_torch.kernels import decode_attention as tda
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, split_len = tda.decode_splits(b, hk, s, sms)
+    rng = np.random.default_rng(b * s + g + hk)
+    d = 128 if s > 500 else 64
+    q = _normal(rng, (b, 1, hk * g, d), dtype, dev)
+    kc = _normal(rng, (b, s, hk, d), cache_dtype, dev)
+    vc = _normal(rng, (b, s, hk, d), cache_dtype, dev)
+    ragged = rng.integers(1, s + 1, b)
+    for first in (0, 1, min(split_len, s), s + 7):
+        lens = ragged.copy()
+        lens[0] = first
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        before = tda.launches
+        out = tda.decode_attention(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        assert tda.launches == before + 1
+        ref = tda.decode_attention_ref(q, kc, vc, lengths)
+        assert out.dtype == dtype and out.shape == q.shape
+        atol, rtol = _one_ulp(dtype)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,cache_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+def test_decode_attention_kernel_is_deterministic(dev, dtype, cache_dtype):
+    """Splits merge in a fixed order: two calls are bit-equal."""
+    from repro_torch.kernels import decode_attention as tda
+
+    rng = np.random.default_rng(7)
+    q = _normal(rng, (4, 1, 56, 128), dtype, dev)
+    kc = _normal(rng, (4, 1064, 8, 128), cache_dtype, dev)
+    vc = _normal(rng, (4, 1064, 8, 128), cache_dtype, dev)
+    lengths = torch.as_tensor([1025, 0, 1, 1071], dtype=torch.int32,
+                              device=dev)
+    a = tda.decode_attention(q, kc, vc, lengths)
+    b = tda.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", (1, 1000, 100_003))
