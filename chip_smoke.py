@@ -27,6 +27,10 @@ prints its last line):
 4. kernels vs plain versions at the main path's shapes (every variant),
    with CUDA-event times, the plain version's time, the card's lower bound
    and, where one PyTorch call computes the same function, its time;
+   ``price_grid`` also reports the bisection steps its cells ran, an
+   ex2-count reading beside its bound and, for the multi-policy call,
+   each policy's rows timed alone; ``profile_grid`` its page sort's
+   and its kernel's times (``ms`` is their sum) and its global flushes;
 5. the main path again through the host executor on the same card, and a
    trace replay of the chosen PGM and RMI configurations (q-error < 1.4);
 6. the serving path: yi-34b at full width and depth (bf16 weights from a
@@ -74,6 +78,9 @@ PAPER_BUDGET_MIB = 128.0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+# MUFU ex2 issue rate of an H100 SXM: 16 a clock on each of 132 SMs at the
+# 1.98 GHz boost clock (a reading beside price_grid's bound, not the bound)
+EX2_PER_S = 132 * 16 * 1.98e9
 Q_ERROR_BOUND = 1.4
 POLICIES = ("lru", "fifo", "lfu")
 
@@ -228,6 +235,46 @@ def compare_price(tpg, call, flags, tol_h: float):
         check(abs(v_k - v_r) <= 1e-5 * max(abs(v_r), 1e-12) + tol_h,
               f"price_grid argmin {bi_k} vs {bi_r}: {v_k} vs {v_r}")
     return err
+
+
+def price_steps(tpg, call, flags):
+    """The kernel's own reading of one call: bisection steps each cell ran
+    ((K, C) int32; 0 where a cell does not bisect)."""
+    import torch
+    steps = torch.zeros_like(call["caps_i"])
+    tpg.price_grid(call["policy"], *(call[n] for n in PRICE_ARGS), **flags,
+                   steps=steps)
+    return steps
+
+
+def price_ex2(call, flags, steps):
+    """expm1f evaluations the call's LRU cells need at the steps they ran
+    (each step and the final pass over P pages, plus the writeback's), one
+    MUFU ex2 each: a count for the ex2 reading, not the bound."""
+    import numpy as np
+    k, p = call["probs"].shape
+    modes = {"lru": 0, "fifo": 1, "lfu": 2}
+    pol = (call["i32s"][:, 3].cpu().numpy() if call["policy"] == "multi"
+           else np.full(k, modes[call["policy"]]))
+    st = steps.cpu().numpy().astype(np.int64)
+    lru = (pol[:, None] == 0) & (st > 0)
+    per_cell = (st + 1 + (1 if flags["has_write"] else 0)) * p
+    return float(per_cell[lru].sum())
+
+
+def price_policy_ms(tpg, call, flags):
+    """Device ms of a multi-policy call's rows of each policy alone: where
+    its time goes when the card is full with either policy's rows."""
+    import torch
+    out = {}
+    for name, pid in (("lru", 0), ("fifo", 1), ("lfu", 2)):
+        rows = torch.nonzero(call["i32s"][:, 3] == pid).flatten()
+        if rows.numel():
+            part = {n: v.index_select(0, rows).contiguous()
+                    if torch.is_tensor(v) else v for n, v in call.items()}
+            out[name] = cuda_ms(lambda: run_price(tpg.price_grid, part,
+                                                  flags))
+    return out
 
 
 def price_work(call, flags):
@@ -1277,10 +1324,20 @@ def main_shape_kernels(torch, np, tpg, tprof, dev, world, pgm, recorder,
                                                    flags))
         plain = cuda_ms(lambda: run_price(tpg.price_grid_ref, call, flags),
                         reps=3, warmup=1)
+        steps = price_steps(tpg, call, flags)
+        ran = steps[steps > 0].double()
+        ex2 = price_ex2(call, flags, steps)
         detail["/".join(map(str, key))] = dict(
             shape=list(call["probs"].shape) + [call["caps_i"].shape[1]],
             ms=ms, call_ms=call_ms, plain_ms=plain, bound_ms=b_ms,
-            bound_by=b_by, max_abs_err=err, bytes=nbytes, ops=ops)
+            bound_by=b_by, max_abs_err=err, bytes=nbytes, ops=ops,
+            bisecting_cells=int(ran.numel()),
+            steps_mean=float(ran.mean()) if ran.numel() else 0.0,
+            steps_max=int(ran.max()) if ran.numel() else 0,
+            ex2_count=ex2, ex2_reading_ms=ex2 / EX2_PER_S * 1e3)
+        if call["policy"] == "multi":
+            detail["/".join(map(str, key))]["policy_rows_ms"] = \
+                price_policy_ms(tpg, call, flags)
     emit({"phase": "kernels_main", "kernel": "price_grid",
           "variants_checked": len(variants) + len(recorder.price),
           "max_abs_err": price_err, "main_path_calls": detail})
@@ -1306,7 +1363,18 @@ def main_shape_kernels(torch, np, tpg, tprof, dev, world, pgm, recorder,
     err_exact = compare_profile(tprof, exact_call, exact=True)
     nbytes, adds = profile_work(torch, call)
     b_ms, b_by = bound(nbytes, adds)
-    ms, call_ms = cuda_times(lambda: run_profile(tprof.profile_grid, call))
+    # the call is the page sort (with its tile plan and range checks, two
+    # host syncs) and then the kernel; ms is the sum of their device times
+    operands = dict(keys=call["keys"], pages=call["pages"], lut=call["lut"],
+                    bands=call["bands"], c_ipp=call["c_ipp"], pad=call["pad"])
+    sq = tprof.sort_queries(**operands)
+    sort_ms = cuda_ms(lambda: tprof.sort_queries(**operands))
+    kernel_ms = cuda_ms(lambda: tprof.launch_sorted(sq))
+    ms = sort_ms + kernel_ms
+    call_ms = cuda_times(lambda: run_profile(tprof.profile_grid, call))[1]
+    flushes = torch.zeros(1, dtype=torch.int64, device=dev)
+    tprof.launch_sorted(sq, flushes)
+    flushes = int(flushes)
     plain = cuda_ms(lambda: run_profile(tprof.profile_grid_ref, call),
                     reps=3, warmup=1)
     library = None
@@ -1319,7 +1387,9 @@ def main_shape_kernels(torch, np, tpg, tprof, dev, world, pgm, recorder,
     emit({"phase": "kernels_main", "kernel": "profile_grid",
           "shape": [k_rows, q, call["pad"]], "lut": list(call["lut"].shape),
           "max_abs_err": err, "integer_mass_max_abs_err": err_exact,
-          "adds": adds, "bytes": nbytes, "ms": ms, "call_ms": call_ms,
+          "adds": adds, "bytes": nbytes, "ms": ms, "sort_ms": sort_ms,
+          "kernel_ms": kernel_ms, "call_ms": call_ms,
+          "tiles": sq.starts.numel() - 1, "global_flushes": flushes,
           "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
           "library_ms": library})
     profile_row = dict(

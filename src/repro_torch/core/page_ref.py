@@ -53,8 +53,9 @@ def _segment_sum(values: torch.Tensor, index: torch.Tensor,
     return out.scatter_add_(0, index.long(), values.float())
 
 
-def _lut(eps: torch.Tensor, d_radius: int, c_ipp: int) -> torch.Tensor:
-    """Eq. 12 LUT for a (possibly batched) eps tensor and a padded radius.
+def _lut_width(eps: torch.Tensor, d_radius: int, c_ipp: int) -> torch.Tensor:
+    """Eq. 12 numerator max(0, U - L + 1) for a (possibly batched) eps
+    tensor and a padded radius.
 
     Entries with |d| beyond a candidate's own radius get width 0 from the
     max(0, ·) clamp, so padding to the grid-wide max radius is exact.
@@ -65,8 +66,14 @@ def _lut(eps: torch.Tensor, d_radius: int, c_ipp: int) -> torch.Tensor:
     eps = eps.long()
     lo = torch.maximum(-eps, d * c_ipp - s - eps)
     hi = torch.minimum(eps, d * c_ipp - s + c_ipp - 1 + eps)
-    width = torch.clamp(hi - lo + 1, min=0)
-    return width.float() / (2.0 * eps.float() + 1.0)
+    return torch.clamp(hi - lo + 1, min=0)
+
+
+def _lut(eps: torch.Tensor, d_radius: int, c_ipp: int) -> torch.Tensor:
+    """Eq. 12 LUT for a batched eps tensor: a true float32 division, as
+    the reference's traced-eps LUT computes it."""
+    return (_lut_width(eps, d_radius, c_ipp).float()
+            / (2.0 * eps.float() + 1.0))
 
 
 def point_lut(eps: int, c_ipp: int, device="cpu") -> torch.Tensor:
@@ -79,9 +86,15 @@ def point_lut(eps: int, c_ipp: int, device="cpu") -> torch.Tensor:
         L(d,s) = max(-eps, d*C_ipp - s - eps)
         U(d,s) = min(+eps, d*C_ipp - s + C_ipp - 1 + eps)
         Pr     = max(0, U - L + 1) / (2*eps + 1)
+
+    With eps static the reference's compiler folds the constant divisor
+    into a multiply by its float32 reciprocal, rounded once; so does this
+    function, which keeps the two LUTs bit-equal.
     """
-    return _lut(torch.tensor(int(eps), device=device),
-                lut_radius(eps, c_ipp), c_ipp)
+    width = _lut_width(torch.tensor(int(eps), device=device),
+                       lut_radius(eps, c_ipp), c_ipp)
+    inv = np.float32(1.0) / np.float32(2 * int(eps) + 1)
+    return width.float() * torch.tensor(inv, device=device)
 
 
 def point_access_prob_exact(r: int, page: int, eps: int, c_ipp: int) -> float:

@@ -35,8 +35,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 #: C signatures of the entry points (see the ``extern "C"`` functions).
 _SIGNATURES = {
-    "price_grid_launch": [_I] * 7 + [_P] * 15,
-    "profile_grid_launch": [_P] * 4 + [_I] * 5 + [_LL, _P, _P, _I, _P],
+    "price_grid_launch": [_I] * 7 + [_P] * 16,
+    "profile_grid_launch": [_P] * 5 + [_I] * 7 + [_LL, _P, _P, _P, _P],
     "flash_attention_launch": [_I] * 8 + ([_P] + [_LL] * 3) * 3 + [_P, _P],
     "decode_attention_launch": [_I] * 9 + [_P, _LL, _LL] + [_P] + [_LL] * 3
                                + [_P] + [_LL] * 3 + [_P, _P, _P, _P],

@@ -13,15 +13,15 @@ composition of ``cache_models.hit_rate_grid``, then the objective
   (the CPU path and the card-side yardstick);
 * :func:`price_grid` is the wrapper: CPU tensors take the plain version,
   CUDA tensors launch the hand-written kernel ``csrc/price_grid.cu`` (one
-  thread block per (row, cell), block-wide reductions for the 64-step
-  bisection, a packed 64-bit ``atomicMin`` for the argmin) or raise.
-  ``launches`` counts kernel launches.
+  thread-block cluster per row, the row's slices resident in the CTAs'
+  shared memory, all of its cells bisecting in lockstep with one
+  cross-CTA reduction a step, stopping once every cell has converged; a
+  packed 64-bit ``atomicMin`` for the argmin) or raise.  ``launches``
+  counts kernel launches.
 
-What bounds the kernel on the H100: the recency bisection is 64 passes of
-``expm1f``/divide work over each row's P pages (the row is L2-resident after
-the first pass), so it is bound by arithmetic over the (K x C x P x 64)
-table, not by the bytes of its inputs; spreading (row, cell) pairs over
-blocks keeps all 132 SMs busy at the tuner's few dozen rows.
+What bounds the kernel on the H100: ``expm1f``/divide work over each row's
+P pages for every live cell and bisection step, read from shared memory,
+not the bytes of its inputs (read once).
 
 Semantics mirror ``cache_models.hit_rate_grid`` branch for branch
 (compulsory closed form where ``cap >= N`` in exact int32 compares, zero
@@ -163,7 +163,8 @@ def _ptr(t):
 
 
 def _launch(policy, probs, sorted_probs, cov_desc, f32s, i32s, caps_f,
-            caps_i, ids, wprobs, wprobs_q, has_sorted, has_write, iters):
+            caps_i, ids, wprobs, wprobs_q, has_sorted, has_write, iters,
+            steps):
     global launches
     from repro_torch.kernels import _build
 
@@ -184,6 +185,8 @@ def _launch(policy, probs, sorted_probs, cov_desc, f32s, i32s, caps_f,
         needs["wprobs"] = (wprobs, torch.float32, (k, p_width))
         if lfu_read:
             needs["wprobs_q"] = (wprobs_q, torch.float32, (k, p_width))
+    if steps is not None:
+        needs["steps"] = (steps, torch.int32, (k, c))
     for name, (t, dtype, shape) in needs.items():
         if t is None or t.device != probs.device or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -208,7 +211,7 @@ def _launch(policy, probs, sorted_probs, cov_desc, f32s, i32s, caps_f,
             _ptr(used.get("wprobs_q")), f32s.data_ptr(), i32s.data_ptr(),
             caps_f.data_ptr(), caps_i.data_ptr(), ids.data_ptr(),
             h.data_ptr(), best_key.data_ptr(), best_val.data_ptr(),
-            best_id.data_ptr(), stream)
+            best_id.data_ptr(), _ptr(steps), stream)
     _build.check(code, "price_grid")
     launches += 1
     return h, best_val, best_id
@@ -216,7 +219,8 @@ def _launch(policy, probs, sorted_probs, cov_desc, f32s, i32s, caps_f,
 
 def price_grid(policy: str, probs, sorted_probs, cov_desc, f32s, i32s,
                caps_f, caps_i, ids, wprobs=None, wprobs_q=None, *,
-               has_sorted: bool, has_write: bool = False, iters: int = 64):
+               has_sorted: bool, has_write: bool = False, iters: int = 64,
+               steps=None):
     """Price a (K rows x C cells-per-row) padded table in one launch.
 
     Args:
@@ -238,6 +242,10 @@ def price_grid(policy: str, probs, sorted_probs, cov_desc, f32s, i32s,
         normalizer (read iff ``has_write``).
       wprobs_q: (K, P) ``wprobs`` permuted by descending combined ``probs``
         (read iff ``has_write`` and lfu or multi).
+      iters: the most bisection steps a cell runs.
+      steps: optional (K, C) int32 CUDA tensor the kernel fills with the
+        bisection steps each cell ran (0 where a cell does not bisect) — a
+        reading of the kernel; the plain version has none.
 
     Returns:
       (h (K, C) float32, best_val (1, 1) float32, best_id (1, 1) int32) —
@@ -252,6 +260,9 @@ def price_grid(policy: str, probs, sorted_probs, cov_desc, f32s, i32s,
         raise ValueError("has_write=True needs wprobs (and wprobs_q for "
                          "lfu/multi launches)")
     if probs.device.type == "cpu":
+        if steps is not None:
+            raise ValueError("price_grid: steps is a reading of the CUDA "
+                             "kernel; the plain version runs every step")
         return price_grid_ref(policy, probs, sorted_probs, cov_desc, f32s,
                               i32s, caps_f, caps_i, ids, wprobs, wprobs_q,
                               has_sorted=has_sorted, has_write=has_write,
@@ -261,4 +272,4 @@ def price_grid(policy: str, probs, sorted_probs, cov_desc, f32s, i32s,
                          f"{probs.device}")
     return _launch(policy, probs, sorted_probs, cov_desc, f32s, i32s, caps_f,
                    caps_i, ids, wprobs, wprobs_q, has_sorted, has_write,
-                   iters)
+                   iters, steps)

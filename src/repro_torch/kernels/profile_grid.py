@@ -28,19 +28,26 @@ in the SAME padded ``(K, P + 2D)`` layout the host kernel accumulates into
   CUDA tensors launch ``csrc/profile_grid.cu`` or raise.  ``launches``
   counts kernel launches.
 
-What bounds the kernel on the H100: one float64 ``atomicAdd`` per nonzero
-(query, page) entry into an L2-resident histogram — contention on the hot
-pages of a skewed workload, not bytes, sets its time.  The design keeps the
-work to each query's own band (per-class band limits), reads the LUT
-key-major (contiguous per thread) and stages it in shared memory when it
-fits.  Both versions accumulate in float64 and round once to float32, as
-the host kernel's float64 ``np.bincount`` does: a hot bin collects
-thousands of fractional LUT entries, which float32 accumulation would leave
-order-dependent at ~1e-6 relative.  Integer mass is exact.
+The kernel takes the queries sorted by page (:func:`sort_queries`: one
+stable sort per call, since a query's page does not depend on the row)
+and cut by :func:`plan_tiles` into tiles whose page windows fit the
+``BINS`` float64 bins a block holds in shared memory.  Each warp of a block
+accumulates its share of a tile into a private window histogram, its
+lanes spread over each query's band (no shared-memory atomics: on sm_90a
+those are CAS loops for float64), runs of equal (page, key) once; the
+warps' histograms are added in a fixed order and each nonzero bin is
+flushed to the global float64 histogram with one atomic.  What bounds it
+on the H100: the shared-memory read-modify-writes of each query's band
+and the LUT reads, not the hot pages' contention, which sorted tiles take
+off the global atomics.  Both versions accumulate in float64 and round
+once to float32, as the host kernel's float64 ``np.bincount`` does: a hot
+bin collects thousands of fractional LUT entries, which float32
+accumulation would leave order-dependent at ~1e-6 relative.  Integer mass
+is exact.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -48,11 +55,17 @@ import torch
 from repro_torch.core import page_ref
 from repro_torch.core.session import DEFAULT_TORCH_DEVICE, _np64
 
-__all__ = ["profile_grid", "profile_grid_ref",
-           "point_page_refs_mixed_eps_grid", "launches"]
+__all__ = ["profile_grid", "profile_grid_ref", "plan_tiles", "sort_queries",
+           "launch_sorted", "point_page_refs_mixed_eps_grid", "launches"]
 
 #: Kernel launches (not plain-version calls) since import.
 launches = 0
+
+#: float64 window bins a kernel block holds (``kBins`` in the source).
+BINS = 512
+
+#: Most queries in one kernel tile.
+TILE_QUERIES = 2048
 
 #: Max banded entries the plain version materializes at once.
 _REF_CHUNK = 1 << 25
@@ -81,10 +94,49 @@ def profile_grid_ref(keys: torch.Tensor, pages: torch.Tensor,
     return out.reshape(k, pad).float()
 
 
-def _launch(keys, pages, lut, bands, c_ipp, pad):
-    global launches
-    from repro_torch.kernels import _build
+def band_chunk(width: int) -> int:
+    """Band columns one block covers: the whole band while it leaves the
+    window room for pages, else chunks of ``BINS // 2``."""
+    return min(width, BINS // 2)
 
+
+def window_pages(width: int) -> int:
+    """Page range a tile may span (``page[last] - page[first]`` below it)
+    so that its window of pages plus band columns fits ``BINS``."""
+    return BINS - band_chunk(width) + 1
+
+
+def plan_tiles(pages_sorted: torch.Tensor, span: int,
+               tile: int = TILE_QUERIES) -> torch.Tensor:
+    """Cut page-sorted queries into the kernel's tiles, on their device.
+
+    A tile holds at most ``tile`` queries, all with ``page // span`` equal,
+    so ``page[last] - page[first] < span``.  Returns ``starts``
+    (n_tiles + 1,) int32: tile t is queries ``[starts[t], starts[t+1])``.
+    """
+    q = pages_sorted.numel()
+    idx = torch.arange(q, device=pages_sorted.device)
+    block = torch.div(pages_sorted, span, rounding_mode="floor")
+    cut = idx % tile == 0
+    cut[1:] |= block[1:] != block[:-1]
+    return torch.cat([idx[cut], idx.new_tensor([q])]).to(torch.int32)
+
+
+class SortedQueries(NamedTuple):
+    """A profile call's operands in the kernel's order (:func:`sort_queries`)."""
+    keys: torch.Tensor      # (K, Q) int32, columns in page order
+    pages: torch.Tensor     # (Q,) int32, ascending
+    starts: torch.Tensor    # (n_tiles + 1,) int32 tile bounds
+    lut: torch.Tensor
+    bands: torch.Tensor
+    c_ipp: int
+    pad: int
+
+
+def sort_queries(keys, pages, lut, bands, *, c_ipp: int,
+                 pad: int) -> SortedQueries:
+    """Check a CUDA call's operands, sort its queries by page (stable) and
+    plan its tiles: the kernel's preprocessing, part of every call."""
     k, q = keys.shape
     n_keys, width = lut.shape
     dev = keys.device
@@ -101,23 +153,46 @@ def _launch(keys, pages, lut, bands, c_ipp, pad):
         raise ValueError("profile_grid: pages must be (Q,), lut "
                          "(n_classes * c_ipp, W) and bands (n_classes, 2)")
     # the kernel indexes the LUT by key and the histogram by page + band
-    # row: keep both inside their buffers
-    if q and k and (int(keys.min()) < -1 or int(keys.max()) >= n_keys
-                    or int(pages.min()) < 0 or int(bands.min()) < 0
-                    or int(bands.max()) >= width
-                    or int(pages.max()) + int(bands.max()) >= pad):
-        raise ValueError("profile_grid: keys, pages or bands out of range "
-                         "for the LUT and the padded histogram")
-    acc = torch.zeros((k, pad), dtype=torch.float64, device=dev)
-    out = torch.empty((k, pad), dtype=torch.float32, device=dev)
+    # row: keep both inside their buffers (one host sync for all six)
+    if q and k:
+        kmin, kmax, pmin, pmax, bmin, bmax = torch.stack(
+            [keys.min(), keys.max(), pages.min(), pages.max(), bands.min(),
+             bands.max()]).tolist()
+        if (kmin < -1 or kmax >= n_keys or pmin < 0 or bmin < 0
+                or bmax >= width or pmax + bmax >= pad):
+            raise ValueError("profile_grid: keys, pages or bands out of "
+                             "range for the LUT and the padded histogram")
+    pages_sorted, order = torch.sort(pages, stable=True)
+    return SortedQueries(keys.index_select(1, order), pages_sorted,
+                         plan_tiles(pages_sorted, window_pages(width)),
+                         lut, bands, c_ipp, pad)
+
+
+def launch_sorted(sq: SortedQueries, flushes=None) -> torch.Tensor:
+    """Launch the kernel on :func:`sort_queries`' output.  ``flushes``: an
+    optional (1,) int64 CUDA tensor the kernel adds its global atomics to
+    (a reading)."""
+    global launches
+    from repro_torch.kernels import _build
+
+    k, q = sq.keys.shape
+    width = sq.lut.shape[1]
+    dev = sq.keys.device
+    if flushes is not None and (flushes.device != dev or flushes.dtype !=
+                                torch.int64 or flushes.shape != (1,)):
+        raise ValueError("profile_grid: flushes must be a (1,) int64 "
+                         f"tensor on {dev}")
+    acc = torch.zeros((k, sq.pad), dtype=torch.float64, device=dev)
+    out = torch.empty((k, sq.pad), dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.profile_grid_launch(
-            keys.data_ptr(), pages.data_ptr(), lut.data_ptr(),
-            bands.data_ptr(), k, q, width, n_keys, c_ipp, pad,
-            acc.data_ptr(), out.data_ptr(), sms, stream)
+            sq.keys.data_ptr(), sq.pages.data_ptr(), sq.lut.data_ptr(),
+            sq.bands.data_ptr(), sq.starts.data_ptr(), k, q, width, sq.c_ipp,
+            sq.starts.numel() - 1, window_pages(width), band_chunk(width),
+            sq.pad, acc.data_ptr(), out.data_ptr(),
+            None if flushes is None else flushes.data_ptr(), stream)
     _build.check(code, "profile_grid")
     launches += 1
     return out
@@ -150,7 +225,8 @@ def profile_grid(keys: torch.Tensor, pages: torch.Tensor, lut: torch.Tensor,
     if keys.device.type != "cuda":
         raise ValueError(f"profile_grid runs on CPU or CUDA tensors, got "
                          f"{keys.device}")
-    return _launch(keys, pages, lut, bands, c_ipp, pad)
+    return launch_sorted(sort_queries(keys, pages, lut, bands, c_ipp=c_ipp,
+                                      pad=pad))
 
 
 def _lut_stack(class_eps, c_ipp: int, max_radius: int

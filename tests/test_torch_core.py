@@ -75,8 +75,8 @@ def test_dac_closed_forms_and_mixture():
 
 @pytest.mark.parametrize("eps", [1, 7, 64, 300])
 def test_point_lut_and_histogram(positions, eps):
-    # XLA folds the constant divisor into a reciprocal multiply: one
-    # float32 ulp apart from a true division
+    # within one float32 ulp; test_point_lut_bit_equal_to_jax holds the
+    # LUT bit for bit
     assert np.max(np.abs(_np(tpr.point_lut(eps, C_IPP))
                          - _np(jpr.point_lut(eps, C_IPP)))) < 2e-7
     num_pages = 60
@@ -86,6 +86,27 @@ def test_point_lut_and_histogram(positions, eps):
     scale = max(1.0, float(np.max(cj)))
     assert np.max(np.abs(_np(cj) - _np(ct))) / scale < 2e-6
     assert abs(float(tj) - float(tt)) / max(float(tj), 1.0) < 2e-6
+
+
+@pytest.mark.parametrize("c_ipp", [64, 256])
+@pytest.mark.parametrize("eps", [1, 2, 3, 13, 64, 100, 257, 1000, 4097])
+def test_point_lut_bit_equal_to_jax(eps, c_ipp):
+    """The static-eps LUT multiplies by the float32 reciprocal, as the
+    reference's compiled LUT does: bit-equal, eps below and above c_ipp."""
+    assert np.array_equal(tpr.point_lut(eps, c_ipp).numpy(),
+                          np.asarray(jpr.point_lut(eps, c_ipp)))
+
+
+@pytest.mark.parametrize("c_ipp", [64, 256])
+def test_batched_lut_divides_like_jax_traced(c_ipp):
+    """The batched (tensor-eps) LUT keeps its true division, bit-equal to
+    the reference's traced-eps LUT."""
+    eps_grid = np.asarray([1, 3, 13, 100, 257, 1000], np.int64)
+    d = tpr.lut_radius(int(eps_grid.max()), c_ipp)
+    ours = tpr._lut(_t(eps_grid)[:, None, None], d, c_ipp).numpy()
+    ref = np.asarray(jpr._point_lut_traced(
+        jnp.asarray(eps_grid, jnp.int32)[:, None, None], d, c_ipp))
+    assert np.array_equal(ours, ref)
 
 
 def test_point_and_range_grids(positions):

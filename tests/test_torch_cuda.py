@@ -32,8 +32,8 @@ def _price_args(dev, policy, has_sorted, has_write, k=5, p=777, c=4):
     probs = counts / sample[:, None]
     w = np.floor(counts * rng.random((k, p))).astype(np.float32) / sample[:, None]
     nd = (counts > 0).sum(1)
-    caps = np.stack([[n // 3, n // 2, n + 2, -1][:c] for n in nd]).astype(
-        np.int32)
+    caps = np.stack([np.resize([n // 3, n // 2, n + 2, -1, 1, n - 1, n // 7,
+                                0, 2 * n], c) for n in nd]).astype(np.int32)
     f32s = np.zeros((k, 16), np.float32)
     i32s = np.zeros((k, 8), np.int32)
     f32s[:, 0], f32s[:, 1], f32s[:, 2] = sample, 2 * sample, nd
@@ -72,6 +72,112 @@ def test_price_grid_kernel_matches_plain(dev, policy, has_sorted, has_write):
     assert float((h - hr).abs().max()) < 2e-6
     assert abs(float(bv) - float(bvr)) <= 1e-5 * abs(float(bvr)) + 2e-6
     assert int(bi) == int(bir) or abs(float(bv) - float(bvr)) < 2e-6
+
+
+@pytest.mark.parametrize("k,p,c", [
+    (1, 777, 4),          # one row
+    (3, 78_131, 1),       # ragged against the 16-CTA slices
+    (2, 78_125, 3),
+    (2, 78_125, 9),       # two cell groups
+    (2, 600_001, 4),      # slices spill past the staged shared memory
+])
+@pytest.mark.parametrize("policy,has_sorted,has_write", [
+    ("lru", False, False), ("fifo", False, True), ("multi", True, True),
+    ("lfu", True, True)])
+def test_price_grid_kernel_shapes(dev, k, p, c, policy, has_sorted,
+                                  has_write):
+    """Cluster slices, cell groups, spilled slices: 1e-5 on h, the main
+    path's gate (sums over up to 6e5 pages in another order)."""
+    args = _price_args(dev, policy, has_sorted, has_write, k=k, p=p, c=c)
+    steps = torch.full((k, c), -1, dtype=torch.int32, device=dev)
+    h, bv, bi = tpg.price_grid(policy, *args, has_sorted=has_sorted,
+                               has_write=has_write, steps=steps)
+    torch.cuda.synchronize()
+    hr, bvr, bir = tpg.price_grid_ref(policy, *args, has_sorted=has_sorted,
+                                      has_write=has_write)
+    assert float((h - hr).abs().max()) < 1e-5
+    assert abs(float(bv) - float(bvr)) <= 1e-5 * abs(float(bvr)) + 1e-5
+    assert int(bi) == int(bir) or abs(float(bv) - float(bvr)) < 1e-5
+    caps, n_i = args[6], args[4][:, 0:1]
+    bisects = (caps >= 1) & (caps < n_i)
+    if policy == "lfu":
+        bisects &= False
+    elif policy == "multi":
+        bisects &= args[4][:, 3:4] != 2
+    assert bool((steps[~bisects] == 0).all())
+    assert bool((steps[bisects] >= 1).all())
+    assert bool((steps <= 64).all())
+
+
+def test_price_grid_kernel_is_deterministic(dev):
+    for policy in ("lru", "multi"):
+        args = _price_args(dev, policy, True, True, k=7, p=78_125, c=9)
+        a = tpg.price_grid(policy, *args, has_sorted=True, has_write=True)
+        b = tpg.price_grid(policy, *args, has_sorted=True, has_write=True)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def _profile_case(dev, positions, eps_rows, c_ipp, num_pages, integer_mass):
+    before = tprof.launches
+    cg, tg = tprof.point_page_refs_mixed_eps_grid(
+        positions, eps_rows, c_ipp, num_pages, device=dev)
+    torch.cuda.synchronize()
+    assert tprof.launches == before + 1
+    cc, tc = tprof.point_page_refs_mixed_eps_grid(
+        positions, eps_rows, c_ipp, num_pages, device="cpu")
+    if integer_mass:
+        assert torch.equal(cg.cpu(), cc) and np.array_equal(tg, tc)
+    else:
+        scale = max(1.0, float(cc.abs().max()))
+        assert float((cg.cpu() - cc).abs().max()) / scale < 2e-6
+
+
+@pytest.mark.parametrize("integer_mass", (True, False))
+@pytest.mark.parametrize("traffic", ("zipf_hot_page", "hotspot_windows"))
+def test_profile_grid_kernel_skewed_traffic(dev, integer_mass, traffic):
+    """A Zipf-skewed hot key (one page takes ~a quarter of the queries, the
+    main path's w4 shape) and hotspot windows (dense page ranges): exact
+    for integer mass, 2e-6 normalized otherwise."""
+    rng = np.random.default_rng(40 + integer_mass)
+    c_ipp, num_pages, q = 256, 5000, 200_000
+    if integer_mass:
+        slots = rng.integers(64, c_ipp - 64, q)
+        eps_choices = [1, 4, 16, 32]
+    else:
+        slots = rng.integers(0, c_ipp, q)
+        eps_choices = [1, 16, 256, 1024, 8192]
+    if traffic == "zipf_hot_page":
+        page = rng.integers(0, num_pages, q)
+        hot = rng.random(q) < 0.3
+        page[hot] = np.minimum(rng.zipf(1.3, hot.sum()) - 1, num_pages - 1)
+        slots[page == 0] = slots[0]              # the hot key: one slot
+    else:
+        centers = rng.integers(0, num_pages, 6)
+        page = np.clip(centers[rng.integers(0, 6, q)]
+                       + rng.integers(-40, 40, q), 0, num_pages - 1)
+    positions = page * c_ipp + slots
+    eps_rows = rng.choice(eps_choices, size=(5, q)).astype(np.int64)
+    _profile_case(dev, positions, eps_rows, c_ipp, num_pages, integer_mass)
+
+
+def test_profile_grid_kernel_counts_flushes(dev):
+    rng = np.random.default_rng(8)
+    keys = torch.as_tensor(rng.integers(-1, 256, (2, 30_000)).astype(
+        np.int32), device=dev)
+    pages = torch.as_tensor(rng.integers(0, 900, 30_000).astype(np.int32),
+                            device=dev)
+    lut = torch.as_tensor(rng.integers(0, 2, (256, 5)).astype(np.float32),
+                          device=dev)
+    bands = torch.as_tensor([[0, 4]], dtype=torch.int32, device=dev)
+    sq = tprof.sort_queries(keys, pages, lut, bands, c_ipp=256, pad=905)
+    flushes = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = tprof.launch_sorted(sq, flushes)
+    ref = tprof.profile_grid_ref(keys, pages, lut, bands, c_ipp=256, pad=905)
+    assert torch.equal(out, ref)
+    # at least one flush per nonzero output bin, at most one per window bin
+    n_tiles = sq.starts.numel() - 1
+    assert int((ref != 0).sum()) <= int(flushes) <= 2 * n_tiles * tprof.BINS
 
 
 def test_profile_grid_kernel_matches_plain(dev):

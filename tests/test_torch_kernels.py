@@ -169,6 +169,61 @@ def test_price_grid_wrapper_takes_plain_version_on_cpu():
                        has_write=True)
 
 
+def test_price_grid_steps_is_a_kernel_reading():
+    inputs = _price_inputs("lru", False, False, seed=4)
+    args = {n: None if v is None else torch.as_tensor(v)
+            for n, v in inputs.items()}
+    steps = torch.zeros(args["caps_i"].shape, dtype=torch.int32)
+    with pytest.raises(ValueError, match="steps"):
+        tpg.price_grid("lru", **args, has_sorted=False, steps=steps)
+
+
+def _occ_sums(policy, probs, t):
+    """(C,) float32 occupancy sums of one row at C candidate times."""
+    pt = probs[None, :] * t[:, None]
+    occ = -torch.expm1(-pt) if policy == "lru" else pt / (1.0 - probs + pt)
+    return occ.sum(dim=1)
+
+
+def _bisect(policy, probs, caps, pmin, iters, stop):
+    """Float32 bisection for every capacity at once; with ``stop`` a cell
+    stops once mid equals lo or hi (the kernel's rule).  Returns (t_c,
+    steps run per cell)."""
+    c_eff = torch.clamp(caps, min=1.0)
+    hi = torch.clamp(4.0 * c_eff / pmin, min=1.0)
+    lo = torch.zeros_like(hi)
+    steps = torch.zeros(caps.shape, dtype=torch.int64)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        live = (mid != lo) & (mid != hi) if stop else torch.ones_like(
+            mid, dtype=torch.bool)
+        if not bool(live.any()):
+            break
+        below = _occ_sums(policy, probs, mid) - c_eff < 0.0
+        lo = torch.where(live & below, mid, lo)
+        hi = torch.where(live & ~below, mid, hi)
+        steps += live
+    return 0.5 * (lo + hi), steps
+
+
+@pytest.mark.parametrize("policy", ("lru", "fifo"))
+@pytest.mark.parametrize("seed", range(4))
+def test_converged_stop_keeps_the_64_step_t_c(policy, seed):
+    """The kernel's stop rule (LFU runs no bisection) gives the 64-step t_c
+    bit for bit at every capacity 1..P, in fewer steps."""
+    rng = np.random.default_rng(seed)
+    p = 97
+    c = rng.pareto(1.0 + seed * 0.3, p).astype(np.float32)
+    c[rng.random(p) < 0.25] = 0.0
+    probs = torch.as_tensor(c / c.sum())
+    pmin = torch.min(torch.where(probs > 0, probs, torch.inf))
+    caps = torch.arange(1, p + 1, dtype=torch.float32)
+    t64, s64 = _bisect(policy, probs, caps, pmin, 64, stop=False)
+    t_stop, s_stop = _bisect(policy, probs, caps, pmin, 64, stop=True)
+    assert torch.equal(t_stop, t64)
+    assert bool((s64 == 64).all()) and int(s_stop.max()) < 64
+
+
 # ---------------------------------------------------------------------------
 # profile_grid
 # ---------------------------------------------------------------------------
@@ -275,3 +330,119 @@ def test_profile_grid_ref_matches_pallas_on_its_inputs():
         c_ipp=cc, pad=pad)
     assert tprof.launches == before                      # CPU: plain version
     assert np.array_equal(out_t.numpy(), out_j)
+
+
+# ---------------------------------------------------------------------------
+# profile_grid's tile plan and window arithmetic (the kernel's, on the CPU)
+# ---------------------------------------------------------------------------
+
+def _planner_cases():
+    rng = np.random.default_rng(31)
+    return {
+        "one_page": np.full(5000, 17, np.int32),
+        "spread": rng.integers(0, 200_000, 6001).astype(np.int32),
+        "ragged": rng.integers(0, 900, tprof.TILE_QUERIES * 3 + 5).astype(
+            np.int32),
+        "hot_and_uniform": np.concatenate([
+            np.full(4500, 333, np.int32),
+            rng.integers(0, 5000, 3000).astype(np.int32)]),
+        "single": np.asarray([4], np.int32),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_planner_cases()))
+@pytest.mark.parametrize("width", [3, 129, 301])
+def test_profile_tile_plan_covers_each_query_once_in_its_bins(case, width):
+    pages = torch.as_tensor(_planner_cases()[case])
+    ps, _ = torch.sort(pages, stable=True)
+    starts = tprof.plan_tiles(ps, tprof.window_pages(width)).numpy()
+    q = ps.numel()
+    assert starts.dtype == np.int32 and starts[0] == 0 and starts[-1] == q
+    sizes = np.diff(starts)
+    assert (sizes >= 1).all() and (sizes <= tprof.TILE_QUERIES).all()
+    assert sizes.sum() == q                       # each query exactly once
+    psn = ps.numpy()
+    span = psn[starts[1:] - 1] - psn[starts[:-1]]
+    assert (span + tprof.band_chunk(width) <= tprof.BINS).all()
+    if case == "one_page":
+        assert len(sizes) == -(-q // tprof.TILE_QUERIES)
+
+
+def test_profile_tile_plan_empty():
+    starts = tprof.plan_tiles(torch.zeros(0, dtype=torch.int32),
+                              tprof.window_pages(9))
+    assert starts.tolist() == [0]
+
+
+def _tiled_like_the_kernel(sq):
+    """The kernel's arithmetic in numpy float64: per (tile, row, band
+    chunk) a window histogram at page[first] + d0, flushed into the padded
+    output."""
+    keys, pages = sq.keys.numpy(), sq.pages.numpy()
+    lut, bands = sq.lut.numpy().astype(np.float64), sq.bands.numpy()
+    starts = sq.starts.numpy()
+    k, width = keys.shape[0], lut.shape[1]
+    wc = tprof.band_chunk(width)
+    out = np.zeros((k, sq.pad))
+    for t in range(len(starts) - 1):
+        q0, q1 = starts[t], starts[t + 1]
+        p0 = pages[q0]
+        for d0 in range(0, width, wc):
+            w = min(wc, width - d0)
+            nb = pages[q1 - 1] - p0 + w
+            assert nb <= tprof.BINS
+            for r in range(k):
+                hist = np.zeros(nb)
+                for i in range(q0, q1):
+                    key = keys[r, i]
+                    if key < 0:
+                        continue
+                    lo, hi = bands[key // sq.c_ipp]
+                    lo, hi = max(lo, d0), min(hi, d0 + w - 1)
+                    if hi >= lo:
+                        b = pages[i] - p0 - d0
+                        hist[b + lo:b + hi + 1] += lut[key, lo:hi + 1]
+                out[r, p0 + d0:p0 + d0 + nb] += hist
+    return out.astype(np.float32)
+
+
+@pytest.mark.parametrize("c_ipp,eps_choices,hot", [
+    (128, [1, 4, 16, 64], True),      # Zipf-like hot page
+    (128, [1, 2, 4], False),          # integer mass
+    (8, [3, 600], False),             # band wider than BINS // 2: chunks
+])
+def test_profile_tiles_reproduce_the_plain_version(c_ipp, eps_choices, hot):
+    rng = np.random.default_rng(len(eps_choices) + c_ipp)
+    num_pages, q = 300, 2600
+    if eps_choices == [1, 2, 4]:
+        positions = rng.integers(0, num_pages, q) * c_ipp \
+            + rng.integers(16, 112, q)
+    else:
+        positions = rng.integers(0, num_pages * c_ipp, q)
+    if hot:
+        positions[rng.random(q) < 0.5] = 7 * c_ipp + 5
+    eps_rows = rng.choice(eps_choices, size=(3, q)).astype(np.int64)
+    captured = {}
+    real = tprof.profile_grid
+
+    def grab(*a, **kw):
+        captured.update(dict(zip(("keys", "pages", "lut", "bands"), a), **kw))
+        return real(*a, **kw)
+
+    tprof.profile_grid = grab
+    try:
+        tprof.point_page_refs_mixed_eps_grid(positions, eps_rows, c_ipp,
+                                             num_pages, device="cpu")
+    finally:
+        tprof.profile_grid = real
+    keys = captured["keys"].clone()
+    keys[1] = -1                                     # a pad-only row
+    call = dict(captured, keys=keys)
+    sq = tprof.sort_queries(**call)
+    ours = _tiled_like_the_kernel(sq)
+    ref = tprof.profile_grid_ref(**call).numpy()
+    assert not ours[1].any()
+    if eps_choices == [1, 2, 4]:
+        assert np.array_equal(ours, ref)
+    else:
+        assert np.max(np.abs(ours - ref)) / max(1.0, ref.max()) < 2e-6
