@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) through CAM's main path
-and the LM serving path on one NVIDIA GPU, and hold its five CUDA kernels
+and the LM serving path on one NVIDIA GPU, and hold its six CUDA kernels
 against their plain versions.
 
 Run from the root of a checkout::
@@ -14,7 +14,8 @@ prints its last line):
    built from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 2. kernels vs plain versions at small shapes, every variant (attention:
    causal and not, float32 and bfloat16, GQA 1:1 to 8:1, ragged lengths,
-   head_dim 64 and 128; Che sums at N in {1, 1000, 100,003}, K in {1, 8});
+   head_dim 64 and 128; Che sums at N in {1, 1000, 100,003}, K in {1, 8};
+   the fused Che solve at the same N);
 3. the main path at the paper's §VII-A setup with one cut (20M books keys
    instead of 200M): 1M w4 point queries, 4 KiB pages, 256 keys per page,
    a 12.8 MiB budget (the paper's 128 MiB scaled by the same 1/10), LRU —
@@ -22,8 +23,12 @@ prints its last line):
    ``CostSession.estimate_grid`` on a mixed workload (points + a sorted
    range stream + updates); then the Che path: ``hit_rate_lru(
    use_kernel=True)`` on every (row, capacity) of the PGM tune's profile
-   (78,125 pages), held to the bisection path.  Launch counters are zeroed
-   just before each path and read just after;
+   (78,125 pages): one fused ``che_solve`` launch a solve and no
+   ``che_sums`` launch, h held to the bisection path (1e-4) and T to the
+   plain host loop on the same card tensors (1e-4 relative); the same
+   solves through the earlier host loop of ``che_sums`` launches are timed
+   beside it.  Launch counters are zeroed just before each path and read
+   just after;
 4. kernels vs plain versions at the main path's shapes (every variant),
    with CUDA-event times, the plain version's time, the card's lower bound
    and, where one PyTorch call computes the same function, its time;
@@ -31,6 +36,8 @@ prints its last line):
    ex2-count reading beside its bound and, for the multi-policy call,
    each policy's rows timed alone; ``profile_grid`` its page sort's
    and its kernel's times (``ms`` is their sum) and its global flushes;
+   ``che_solve`` the earlier host loop's times and a bit-equality check
+   of two calls (``che_sums`` checks its bits the same way);
 5. the main path again through the host executor on the same card, and a
    trace replay of the chosen PGM and RMI configurations (q-error < 1.4);
 6. the serving path: yi-34b at full width and depth (bf16 weights from a
@@ -612,6 +619,8 @@ ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # tests/test_kernels.py
 ATTN_ULP_REL = 2.0 ** -7
 LOGITS_TOL = 2e-2    # serve path vs its plain path, relative to max-abs
 CHE_RTOL, CHE_ATOL = 1e-4, 1e-3
+CHE_T_RTOL = 1e-4    # T of che_solve, relative (the CPU parity bound vs JAX)
+CHE_K, CHE_ITERS = 8, 16     # hit_rate_lru(use_kernel=True)
 SERVE_BATCH = 4
 
 
@@ -653,7 +662,7 @@ def hold_ulp(name, stats):
 
 def small_attention_checks(torch, np, tfa, tda, tche, dev):
     rng = np.random.default_rng(0)
-    flash, decode, che = [], [], []
+    flash, decode, che, solve = [], [], [], []
     # (B, S, H, Hk, D): GQA 1:1, 2:1, 7:1 and 8:1, S ragged against the
     # kernel's 64-row tiles, D 64 and 128
     for b, s, h, hk, d in ((1, 64, 4, 4, 64), (2, 200, 8, 4, 64),
@@ -692,9 +701,16 @@ def small_attention_checks(torch, np, tfa, tda, tche, dev):
             check(bool(((out - ref).abs() <= CHE_ATOL + CHE_RTOL * ref.abs())
                        .all()), f"che_sums N={n} K={k}: max |d| {err:.3g}")
             che.append(err)
+        cap = max(0.3 * float((probs > 0).sum()), 0.5)
+        t_k, t_r = tche.che_solve(probs, cap), tche.che_solve_ref(probs, cap)
+        rel = abs(float(t_k) - float(t_r)) / abs(float(t_r))
+        check(rel <= CHE_T_RTOL, f"che_solve N={n}: T relative error "
+                                 f"{rel:.3g} > {CHE_T_RTOL:g}")
+        solve.append(rel)
     return dict(flash_cases=len(flash), flash_max_abs_err=max(flash),
                 decode_cases=len(decode), decode_max_abs_err=max(decode),
-                che_cases=len(che), che_max_abs_err=max(che))
+                che_cases=len(che), che_max_abs_err=max(che),
+                che_solve_cases=len(solve), che_solve_max_rel_err=max(solve))
 
 
 def flash_work(q, k, causal: bool):
@@ -740,10 +756,27 @@ def sdpa_decode(torch, q, kc, vc, lengths):
 # The Che path: hit_rate_lru(use_kernel=True) on the PGM profile
 # ---------------------------------------------------------------------------
 
+def che_solve_host_loop(torch, tche, probs, capacity, k=CHE_K,
+                        iters=CHE_ITERS):
+    """(T, h) of the Che solve as it ran before the fused kernel, for
+    timing: the plain host loop (``ref.che_solve_ref``) with each pass's
+    sums from one ``che_sums`` launch."""
+    from repro_torch.kernels import ref
+    plain = ref.che_sums_ref
+    ref.che_sums_ref = tche.che_sums
+    try:
+        t = ref.che_solve_ref(probs, capacity, k=k, iters=iters)
+    finally:
+        ref.che_sums_ref = plain
+    return t, torch.sum(probs * -torch.expm1(-probs * t))
+
+
 def che_path(torch, tcm, tche, recorder):
     """Every (row, capacity) of the main path's PGM tune, through the
-    Che-sums solver and through bisection; launch counter zeroed just
-    before and read just after."""
+    fused Che solve and through bisection; launch counters zeroed just
+    before and read just after.  T is held to the plain host loop on the
+    same tensors, and the same solves run once more through the earlier
+    host loop of ``che_sums`` launches, timed alone."""
     _, call, _ = recorder.price[("lru", False, False)]
     probs, caps = call["probs"], call["caps_i"].cpu().tolist()
     nd = call["i32s"][:, 0].cpu().tolist()
@@ -751,30 +784,53 @@ def che_path(torch, tcm, tche, recorder):
             if 1 <= c < nd[r]]
     t0 = time.perf_counter()
     tche.launches = 0
+    tche.solve_launches = 0
     h_kernel = [tcm.hit_rate_lru(probs[r], c, use_kernel=True)
                 for r, c in work]
-    launches = tche.launches
+    solve_launches, sums_launches = tche.solve_launches, tche.launches
     h_kernel = torch.stack(h_kernel).cpu()
     seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h_loop = torch.stack([che_solve_host_loop(torch, tche, probs[r], c)[1]
+                          for r, c in work]).cpu()
+    loop_seconds = time.perf_counter() - t0
     h_bisect = torch.stack([tcm.hit_rate_lru(probs[r], c)
                             for r, c in work]).cpu()
     err = float((h_kernel - h_bisect).abs().max())
     check(err <= 1e-4, f"Che path: |h kernel - h bisection| {err:.3g} > 1e-4")
-    # timing operands: the largest row and one pass's 8 candidates
-    row = probs[max(range(probs.shape[0]), key=lambda r: nd[r])].contiguous()
+    t_kernel = torch.stack([tche.che_solve(probs[r], c, k=CHE_K,
+                                           iters=CHE_ITERS)
+                            for r, c in work]).cpu()
+    t_plain = torch.stack([tche.che_solve_ref(probs[r], c, k=CHE_K,
+                                              iters=CHE_ITERS)
+                           for r, c in work]).cpu()
+    t_rel = float(((t_kernel - t_plain).abs() / t_plain.abs()).max())
+    check(t_rel <= CHE_T_RTOL, f"Che path: T relative to the plain loop "
+                               f"{t_rel:.3g} > {CHE_T_RTOL:g}")
+    # timing operands: the largest row, one pass's 8 candidates, and the
+    # median capacity solved on that row
+    big = max(range(probs.shape[0]), key=lambda r: nd[r])
+    row = probs[big].contiguous()
+    row_caps = sorted(c for r, c in work if r == big)
     ts = torch.logspace(0, 6, 8, device=row.device)
-    return dict(solves=len(work), pages=probs.shape[1], launches=launches,
-                seconds=seconds, max_abs_dh_vs_bisection=err,
+    return dict(solves=len(work), pages=probs.shape[1],
+                solve_launches=solve_launches, che_sums_launches=sums_launches,
+                seconds=seconds, host_loop_seconds=loop_seconds,
+                max_abs_dh_vs_bisection=err,
+                max_abs_dh_vs_host_loop=float((h_kernel - h_loop).abs().max()),
+                max_rel_dt_vs_plain=t_rel,
                 h_range=[float(h_kernel.min()), float(h_kernel.max())]), \
-        (row, ts)
+        (row, ts, row_caps[len(row_caps) // 2] if row_caps else 1)
 
 
 def che_row(torch, tche, operands, launches):
-    row, ts = operands
+    row, ts, _ = operands
     out, ref = tche.che_sums(row, ts), tche.che_sums_ref(row, ts)
     err = float((out - ref).abs().max())
     check(bool(((out - ref).abs() <= CHE_ATOL + CHE_RTOL * ref.abs()).all()),
           f"che_sums at the main path's shape: max |d| {err:.3g}")
+    check(torch.equal(out, tche.che_sums(row, ts)),
+          "che_sums: two calls on the same inputs differ")
     n, k = row.shape[0], ts.shape[0]
     b_ms, b_by = bound(4.0 * (n + 2 * k), 3.0 * n * k)
     ms, call_ms = cuda_times(lambda: tche.che_sums(row, ts), reps=50)
@@ -785,6 +841,54 @@ def che_row(torch, tche, operands, launches):
     return dict(name="che_sums", route="cuda",
                 source="src/repro_torch/kernels/csrc/che_sums.cu",
                 replaces="src/repro/kernels/che_solver.py:65",
+                launches=launches, max_abs_err=err, ms=ms, call_ms=call_ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def che_solve_row(torch, tche, operands, launches):
+    """The fused solve at the Che path's largest row: T against the plain
+    loop, h against h summed from its own T, two calls bit-equal; device
+    and call times beside the plain loop's and the earlier host loop's."""
+    row, _, cap = operands
+    k, iters = CHE_K, CHE_ITERS
+    t_k, h_k = tche.che_hit_rate(row, cap, k=k, iters=iters)
+    t_2, h_2 = tche.che_hit_rate(row, cap, k=k, iters=iters)
+    check(torch.equal(t_k, t_2) and torch.equal(h_k, h_2),
+          "che_solve: two calls on the same inputs differ")
+    t_ref = float(tche.che_solve_ref(row, cap, k=k, iters=iters))
+    err = abs(float(t_k) - t_ref)
+    check(err <= CHE_T_RTOL * abs(t_ref), f"che_solve at the main path's "
+          f"shape: T {float(t_k)!r} vs plain {t_ref!r}")
+    h_own = float(torch.sum(row * -torch.expm1(-row * t_k)))
+    check(abs(float(h_k) - h_own) <= 2e-6 * h_own,
+          f"che_solve: h {float(h_k)!r} vs h from its T {h_own!r}")
+    n = row.shape[0]
+    b_ms, b_by = bound(4.0 * n + 8.0, 3.0 * n * k * iters + 3.0 * n)
+    ms, call_ms = cuda_times(
+        lambda: tche.che_hit_rate(row, cap, k=k, iters=iters), reps=50)
+    plain = cuda_ms(lambda: tche.che_solve_ref(row, cap, k=k, iters=iters),
+                    reps=20)
+    loop_ms, loop_call_ms = cuda_times(
+        lambda: che_solve_host_loop(torch, tche, row, cap, k, iters), reps=20)
+    # where the time goes: the same launch with no pass (staging, the min,
+    # the hit rate), and with every pass on a one-page input (barriers and
+    # reductions with next to no work)
+    no_pass_ms = cuda_ms(lambda: tche.che_hit_rate(row, cap, k=k, iters=0),
+                         reps=50)
+    one_page_ms = cuda_ms(
+        lambda: tche.che_hit_rate(row[:1], 0.5, k=k, iters=iters), reps=50)
+    plan = tche.solve_plan(n, tche._grids[row.device.index])
+    emit({"phase": "kernels_main", "kernel": "che_solve",
+          "shape": [n, k, iters], "grid": [plan.blocks, plan.threads],
+          "spilled": plan.spilled, "capacity": cap, "t": float(t_k),
+          "t_plain": t_ref, "max_abs_err": err, "bit_equal_calls": True,
+          "ms": ms, "call_ms": call_ms, "plain_ms": plain,
+          "host_loop_ms": loop_ms, "host_loop_call_ms": loop_call_ms,
+          "no_pass_ms": no_pass_ms, "one_page_ms": one_page_ms,
+          "bound_ms": b_ms, "bound_by": b_by})
+    return dict(name="che_solve", route="cuda",
+                source="src/repro_torch/kernels/csrc/che_solve.cu",
+                replaces="src/repro/kernels/che_solver.py:82",
                 launches=launches, max_abs_err=err, ms=ms, call_ms=call_ms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -1161,7 +1265,7 @@ def main(argv=None) -> int:
         _build.library()
         emit({"phase": "build", "seconds": _build.build_seconds,
               "built": ["price_grid", "profile_grid", "che_sums",
-                        "flash_attention", "decode_attention"],
+                        "che_solve", "flash_attention", "decode_attention"],
               "sources": [str(s.relative_to(ROOT)) for s in _build.SOURCES]})
 
         # ---- 2. kernels vs plain versions, small shapes ------------------
@@ -1219,9 +1323,13 @@ def main(argv=None) -> int:
         che, che_operands = che_path(torch, tcm, tche, recorder)
         emit({"phase": "che_path", **che})
         if on_card:
-            check(che["launches"] > 0, "che_sums never launched on the Che "
-                                       "path")
-            launches["che_sums"] = che["launches"]
+            check(che["solves"] > 0 and che["solve_launches"] == che["solves"],
+                  f"Che path: {che['solve_launches']} che_solve launches "
+                  f"for {che['solves']} solves")
+            check(che["che_sums_launches"] == 0, "Che path: che_sums "
+                                                 "launched beside the solve")
+            launches["che_solve"] = che["solve_launches"]
+            launches["che_sums"] = che["che_sums_launches"]
 
     # ---- 4. kernels vs plain versions at the main path's shapes -----------
     kernels = []
@@ -1230,6 +1338,8 @@ def main(argv=None) -> int:
                                      recorder, launches)
         kernels.append(che_row(torch, tche, che_operands,
                                launches["che_sums"]))
+        kernels.append(che_solve_row(torch, tche, che_operands,
+                                     launches["che_solve"]))
 
     # ---- 5. host executor on the same card, and trace replay --------------
     os.environ["REPRO_ENGINE_EXECUTOR"] = "host"

@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.che_solver import che_solve
+from repro_torch.kernels.che_solver import che_hit_rate
 
 __all__ = [
     "solve_che_time",
@@ -161,14 +161,15 @@ def hit_rate_lru(probs, capacity, use_kernel: bool = False) -> torch.Tensor:
     """Che's approximation for LRU (Eq. 7).
 
     ``use_kernel=True`` solves the characteristic time of a (P,) ``probs``
-    with the multi-candidate Che-sums kernel (``kernels/che_solver.py``: K=8
-    candidates a pass, 16 passes) — its plain version on CPU tensors.
+    with the multi-candidate Che solver (``kernels/che_solver.py``: K=8
+    candidates a pass, 16 passes): on a CUDA tensor one launch returns T
+    and h; on a CPU tensor the plain solve gives T and h is summed from it
+    as below.
     """
     probs = _float(probs)
     if use_kernel:
-        t_c = che_solve(probs, capacity, k=8, iters=16)
-    else:
-        t_c = solve_che_time(probs, capacity)
+        return che_hit_rate(probs, capacity, k=8, iters=16)[1]
+    t_c = solve_che_time(probs, capacity)
     return torch.sum(probs * _che_occ(probs, t_c), dim=-1)
 
 

@@ -3,7 +3,8 @@
 * ``price_grid`` — the fused PriceTable solve (``csrc/price_grid.cu``);
 * ``profile_grid`` — mixed-eps page occupancy (``csrc/profile_grid.cu``);
 * ``che_solver`` — multi-candidate Che sums (``csrc/che_sums.cu``) and the
-  K-way solver that drives them;
+  K-way solver, every pass and the hit rate in one launch
+  (``csrc/che_solve.cu``);
 * ``flash_attention`` — prefill attention (``csrc/flash_attention.cu``);
 * ``decode_attention`` — one-token decode attention
   (``csrc/decode_attention.cu``).

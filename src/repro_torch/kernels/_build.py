@@ -33,6 +33,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 #: C signatures of the entry points (see the ``extern "C"`` functions).
 _SIGNATURES = {
     "price_grid_launch": [_I] * 7 + [_P] * 16,
@@ -40,7 +41,9 @@ _SIGNATURES = {
     "flash_attention_launch": [_I] * 8 + ([_P] + [_LL] * 3) * 3 + [_P, _P],
     "decode_attention_launch": [_I] * 9 + [_P, _LL, _LL] + [_P] + [_LL] * 3
                                + [_P] + [_LL] * 3 + [_P, _P, _P, _P],
-    "che_sums_launch": [_P, _LL, _P, _I, _I, _P, _P, _P],
+    "che_sums_launch": [_P, _LL, _P, _I, _I] + [_P] * 4,
+    "che_solve_setup": [_P],
+    "che_solve_launch": [_P, _I, _F, _P, _P] + [_I] * 5 + [_P] * 3,
 }
 
 _lib: Optional[ctypes.CDLL] = None

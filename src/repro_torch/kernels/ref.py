@@ -12,7 +12,7 @@ import math
 import torch
 
 __all__ = ["flash_attention_ref", "decode_attention_ref",
-           "decode_attention_split_ref", "che_sums_ref"]
+           "decode_attention_split_ref", "che_sums_ref", "che_solve_ref"]
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):
@@ -96,3 +96,34 @@ def che_sums_ref(probs, t_candidates):
     p = probs.float()[None, :]
     t = t_candidates.float()[:, None]
     return torch.sum(-torch.expm1(-p * t), dim=1)
+
+
+def che_solve_ref(probs, capacity, *, k: int = 8, iters: int = 20):
+    """Solve C = sum_i (1 - exp(-p_i T)) by K-way interval subdivision.
+
+    Each iteration shrinks the log-space bracket by (K+1)x with ONE
+    :func:`che_sums_ref` pass over ``probs``.  Float32 throughout, as JAX.
+    Returns T as a 0-dim float32 tensor on ``probs``' device.
+    """
+    probs = probs.float()
+    # host scalars stay on the host (a 0-dim CPU tensor enters CUDA ops as a
+    # scalar), so the solve queues its launches without a blocking copy
+    capacity = torch.as_tensor(capacity, dtype=torch.float32)
+    pmin = torch.clamp(torch.amin(torch.where(probs > 0, probs,
+                                              float("inf"))), min=1e-30)
+    hi0 = torch.clamp(4.0 * capacity / pmin, min=1.0)
+    # the bracket can span 20+ orders of magnitude (pmin is tiny for zipf
+    # popularity), so subdivide in log space
+    lo0 = hi0 * 1e-30
+    log_lo, log_hi = torch.log(lo0), torch.log(hi0)
+    fracs = torch.arange(1, k + 1, dtype=torch.float32,
+                         device=probs.device) / (k + 1)
+    for _ in range(iters):
+        log_ts = log_lo + (log_hi - log_lo) * fracs
+        sums = che_sums_ref(probs, torch.exp(log_ts))
+        # rightmost candidate still below C bounds the solution from the left
+        idx = torch.sum(sums < capacity).reshape(1)           # in [0, K]
+        grid_pts = torch.cat([log_lo[None], log_ts, log_hi[None]])
+        log_lo = grid_pts.index_select(0, idx)[0]
+        log_hi = grid_pts.index_select(0, idx + 1)[0]
+    return torch.exp(0.5 * (log_lo + log_hi))

@@ -436,7 +436,90 @@ def test_che_sums_kernel_matches_plain(dev, n, k):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("n", (1, 1000, 78_125, 100_003, 1_000_003))
+@pytest.mark.parametrize("k", (3, 8, 16))
+def test_che_sums_kernel_one_launch_bit_equal(dev, n, k):
+    """One launch a call (the last block reduces the partials), the same
+    bits from call to call, within the plain version's tolerance."""
+    from repro_torch.kernels import che_solver as tche
+
+    rng = np.random.default_rng(7 * n + k)
+    p = rng.zipf(1.3, n).astype(np.float64)
+    probs = torch.as_tensor((p / p.sum()).astype(np.float32), device=dev)
+    ts = torch.as_tensor(np.logspace(0, 7, k).astype(np.float32), device=dev)
+    before = tche.launches
+    a = tche.che_sums(probs, ts)
+    b = tche.che_sums(probs, ts)
+    torch.cuda.synchronize()
+    assert tche.launches == before + 2
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, tche.che_sums_ref(probs, ts), rtol=1e-4,
+                               atol=1e-3)
+
+
+def _che_probs(n, seed, dev, zeros=0.0):
+    rng = np.random.default_rng(seed)
+    p = rng.zipf(1.2, n).astype(np.float64)
+    p[rng.random(n) < zeros] = 0.0
+    if not p.any():
+        p[0] = 1.0
+    return torch.as_tensor((p / p.sum()).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("n", (1, 1000, 78_125, 100_003, 1_000_003,
+                               4_000_037))
+@pytest.mark.parametrize("k,iters", ((8, 16), (8, 20), (1, 14), (5, 16),
+                                     (16, 16)))
+def test_che_solve_kernel_matches_plain(dev, n, k, iters):
+    """The fused solve against the plain host loop on the same card
+    tensors (T within 1e-4; at 4,000,037 the slices of a 132-SM grid spill
+    past shared memory), its h against bisection (1e-4) and against h
+    recomputed from its own T (2e-6), and two calls bit-equal; one launch
+    a solve."""
+    from repro_torch.core import cache_models as tcm
+    from repro_torch.kernels import che_solver as tche
+
+    probs = _che_probs(n, n + k, dev, zeros=0.1)
+    nnz = int((probs > 0).sum())
+    if n > 3_000_000:
+        plan = tche.solve_plan(n, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        assert plan.spilled
+    # capacities well inside (0, nnz): near nnz, T is set by the rounding
+    # of a saturated sum, which the summation order moves
+    for cap in sorted({max(nnz // 50, 1), max(nnz // 3, 1),
+                       max(nnz // 2, 1)}):
+        s0, c0 = tche.solve_launches, tche.launches
+        t, h = tche.che_hit_rate(probs, cap, k=k, iters=iters)
+        t2, h2 = tche.che_hit_rate(probs, cap, k=k, iters=iters)
+        torch.cuda.synchronize()
+        assert (tche.solve_launches, tche.launches) == (s0 + 2, c0)
+        assert torch.equal(t, t2) and torch.equal(h, h2)
+        t_ref = float(tche.che_solve_ref(probs, cap, k=k, iters=iters))
+        assert abs(float(t) - t_ref) <= 1e-4 * t_ref, (cap, float(t), t_ref)
+        h_own = float(torch.sum(probs * -torch.expm1(-probs * t)))
+        assert abs(float(h) - h_own) <= 2e-6 * max(h_own, 1e-30)
+        if iters == 16 and k == 8:
+            h_bisect = float(tcm.hit_rate_lru(probs, cap))
+            assert abs(float(h) - h_bisect) <= 1e-4 * h_bisect
+        assert float(tche.che_solve(probs, cap, k=k, iters=iters)) == float(t)
+
+
+def test_che_solve_kernel_reads_a_card_capacity(dev):
+    """A capacity given as a CUDA tensor is read by the kernel (no host
+    copy) and solves as the same number given on the host."""
+    from repro_torch.kernels import che_solver as tche
+
+    probs = _che_probs(5000, 11, dev)
+    for cap in (1.0, 37.0, 1200.0):
+        a = tche.che_hit_rate(probs, cap)
+        b = tche.che_hit_rate(probs, torch.tensor(cap, device=dev))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_hit_rate_lru_kernel_path_matches_bisection(dev):
+    """``hit_rate_lru(use_kernel=True)`` is one fused launch a solve and
+    launches no ``che_sums``."""
     from repro_torch.core import cache_models as tcm
     from repro_torch.kernels import che_solver as tche
 
@@ -444,9 +527,9 @@ def test_hit_rate_lru_kernel_path_matches_bisection(dev):
     p = rng.zipf(1.2, 20000).astype(np.float64)
     probs = torch.as_tensor((p / p.sum()).astype(np.float32), device=dev)
     for cap in (100.0, 2000.0, 15000.0):
-        before = tche.launches
+        before, solves = tche.launches, tche.solve_launches
         h_kernel = float(tcm.hit_rate_lru(probs, cap, use_kernel=True))
-        assert tche.launches == before + 16
+        assert (tche.launches, tche.solve_launches) == (before, solves + 1)
         h_bisect = float(tcm.hit_rate_lru(probs, cap))
         assert abs(h_kernel - h_bisect) <= 1e-4 * h_bisect
 
