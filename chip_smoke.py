@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (``src/repro_torch``) through CAM's main path
-and the LM serving path on one NVIDIA GPU, and hold its six CUDA kernels
-against their plain versions.
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) through CAM's main path,
+CAM's join layer and the LM serving path on one NVIDIA GPU, and hold its six
+CUDA kernels against their plain versions.
 
 Run from the root of a checkout::
 
@@ -40,6 +40,19 @@ prints its last line):
    of two calls (``che_sums`` checks its bits the same way);
 5. the main path again through the host executor on the same card, and a
    trace replay of the chosen PGM and RMI configurations (q-error < 1.4);
+5b. the join path at the paper's §VII-A join setup with the same 1/10
+   cut (``repro_torch.configs.cam_paper.PAPER``): the 20M keys in a PGM at
+   eps 64, 100,000 w4 outer probes, a 1.6 MiB LRU buffer on top of the
+   index.  ``JoinSession.calibrate`` (the fitted Eq. 17 coefficients beside
+   the paper's Table III, printed only: the machine is simulated),
+   ``choose`` and a replay of all four strategies (the choice within 1.10x
+   of the best replayed seconds, every strategy's predicted I/O within
+   q-error 2.0 of its replay, the INLJ/hybrid ratio recorded),
+   ``cost_curve`` at 8 capacities (non-increasing), and a three-level LFU
+   ``JoinTreeSession`` planned and replayed.  Every ``price_grid`` call of
+   the path is held to its plain version (1e-5) and every priced table to
+   the host executor (1e-5 on h); on the card the path must launch
+   ``price_grid`` and price through nothing else;
 6. the serving path: yi-34b at full width and depth (bf16 weights from a
    seeded generator, all 60 layers), batch 4, a 1,024-token prompt, 32
    greedy tokens under ``Recipe(attn_impl="pallas")`` — prefill through
@@ -63,8 +76,9 @@ also gives ``call_ms``, the wall time of back-to-back calls with the host
 included: what a caller pays where launches, not the device, set the pace.
 
 The line before the last is the per-kernel JSON summary; the last line is
-``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3, 5
-and 6 on the CPU (6 on ``reduced(yi-34b)``) at a smaller
+``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3,
+5, 5b and 6 on the CPU (6 on ``reduced(yi-34b)``; the join's outer stream,
+buffer and tree scaled from ``--keys`` by the same ratios) at a smaller
 ``--keys``/``--queries`` and exits non-zero without a result.
 """
 from __future__ import annotations
@@ -80,8 +94,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PAPER_KEYS = 200_000_000
-PAPER_BUDGET_MIB = 128.0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -417,11 +429,13 @@ def synthetic_profile(torch, np, tprof, dev, k, q, num_pages, c_ipp,
 
 class Recorder:
     """Keeps, per kernel variant, the main path call with the most work —
-    the shapes phase 4 holds each kernel to."""
+    the shapes phase 4 holds each kernel to — and, with ``keep_all``,
+    every ``price_grid`` call in order."""
 
-    def __init__(self):
+    def __init__(self, keep_all: bool = False):
         self.price = {}
         self.profile = None
+        self.price_calls = [] if keep_all else None
 
     def install(self, tpg, tprof):
         real_price, real_profile = tpg.price_grid, tprof.profile_grid
@@ -433,6 +447,8 @@ class Recorder:
             size = call["probs"].numel() * call["caps_i"].shape[1]
             if key not in self.price or size > self.price[key][0]:
                 self.price[key] = (size, call, flags)
+            if self.price_calls is not None:
+                self.price_calls.append((call, flags))
             return real_price(*a, **kw)
 
         def profile(*a, **kw):
@@ -476,6 +492,7 @@ class PhaseClock:
 
 def build_world(args, torch_device):
     import numpy as np
+    from repro_torch.configs.cam_paper import PAPER
     from repro_torch.core.cam import CamGeometry
     from repro_torch.core.session import System
     from repro_torch.core.workload import Workload
@@ -501,7 +518,7 @@ def build_world(args, torch_device):
         Workload.sorted_stream(np.sort(rlop), np.sort(rhip), n=n),
         Workload.update(qpos[::10], n=n))
     # the paper's budget/data ratio at this key count: 12.8 MiB at 20M keys
-    budget = PAPER_BUDGET_MIB * 2**20 * args.keys / PAPER_KEYS
+    budget = PAPER.buffer_bytes * args.keys / PAPER.keys_per_dataset
     system = System(CamGeometry(), budget, "lru", torch_device=torch_device)
     return dict(keys=keys, qk=qk, point=point, mixed=mixed, system=system,
                 times=times, budget=budget)
@@ -1206,12 +1223,243 @@ def attention_rows(torch, tfa, tda, first, launches):
 
 
 # ---------------------------------------------------------------------------
+# The join path: the paper's §VII-A join setup at the main path's 1/10 cut
+# ---------------------------------------------------------------------------
+
+JOIN_EPS = 64          # examples/hybrid_join.py and the README's quickstart
+TREE_EPS = 32          # examples/join_tree.py
+CHOICE_BOUND = 1.10    # tests/test_join_session.py: choice vs replayed best
+JOIN_QERR_BOUND = 2.0  # tests/test_join_session.py: plan I/O vs replay
+CURVE_CAPS = 8
+COUNTERS = (("price_grid", "price_grid", "launches"),
+            ("profile_grid", "profile_grid", "launches"),
+            ("che_sums", "che_solver", "launches"),
+            ("che_solve", "che_solver", "solve_launches"),
+            ("flash_attention", "flash_attention", "launches"),
+            ("decode_attention", "decode_attention", "launches"))
+
+
+def zero_counters(mods):
+    for _, mod, attr in COUNTERS:
+        setattr(mods[mod], attr, 0)
+
+
+def read_counters(mods):
+    return {name: getattr(mods[mod], attr) for name, mod, attr in COUNTERS}
+
+
+class PriceLog:
+    """Every ``PricingEngine.price`` call of a path: engine, table and
+    solution, so each table can be priced again through the host
+    executor."""
+
+    def __init__(self):
+        self.calls = []
+
+    def install(self, engine_cls):
+        real, log = engine_cls.price, self
+
+        def price(engine, table, **kw):
+            sol = real(engine, table, **kw)
+            log.calls.append((engine, table, sol))
+            return sol
+
+        engine_cls.price = price
+        return lambda: setattr(engine_cls, "price", real)
+
+
+def join_phase(args, torch, np, mods, keys, pgm, sync, on_card):
+    """The join layer at the paper's §VII-A join setup (1M outer probes,
+    200M inner keys, a 16 MiB buffer) scaled by ``--keys`` / 200M:
+    calibration, strategy choice against replay of all four strategies,
+    cost curves, a three-level join tree, and every ``price_grid`` call
+    held to its plain version and to the host executor."""
+    from repro_torch.configs.cam_paper import PAPER
+    from repro_torch.core.cam import CamGeometry
+    from repro_torch.core.qerror import q_error
+    from repro_torch.core.session import System
+    from repro_torch.data.workloads import WorkloadSpec, join_outer_keys
+    from repro_torch.engine.table import PricingEngine
+    from repro_torch.index.adapters import PGMAdapter
+    from repro_torch.join.session import STRATEGIES, JoinSession
+    from repro_torch.join.tree import JoinTreeSession
+
+    tpg = mods["price_grid"]
+    ratio = args.keys / PAPER.join_inner
+    n_outer = max(1, round(PAPER.join_outer * ratio))
+    buffer_bytes = PAPER.join_buffer_bytes * ratio
+    secs = {}
+    t0 = time.perf_counter()
+    inner = pgm.build({"eps": JOIN_EPS})
+    tree_keys = [keys, keys[::2].copy(), keys[::3].copy()]
+    tree_inners = [PGMAdapter.build(k, TREE_EPS) for k in tree_keys]
+    secs["index_builds"] = time.perf_counter() - t0
+    outer = join_outer_keys(keys, n_outer,
+                            WorkloadSpec("w4", seed=args.seed + 3))
+    tree_outer = join_outer_keys(keys, n_outer,
+                                 WorkloadSpec("w1", seed=args.seed + 4))
+    system = System(CamGeometry(), buffer_bytes + inner.size_bytes, "lru",
+                    torch_device=args.device)
+    tree_system = System(
+        CamGeometry(), buffer_bytes + sum(a.size_bytes for a in tree_inners),
+        "lfu", torch_device=args.device)
+
+    recorder, log = Recorder(keep_all=True), PriceLog()
+    undo = [recorder.install(tpg, mods["profile_grid"]),
+            log.install(PricingEngine)]
+    zero_counters(mods)
+    t_path = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        sess = JoinSession(inner, system, inner_keys=keys)
+        params = sess.calibrate(seed=args.seed)
+        secs["calibrate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        choice = sess.choose(outer)
+        secs["choose"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = {s: sess.execute(choice.plans[s]) for s in STRATEGIES}
+        secs["execute_4_strategies"] = time.perf_counter() - t0
+        secs["execute_by_strategy"] = {s: st.wall_seconds
+                                       for s, st in stats.items()}
+        lo = min(64, sess.capacity)
+        caps = np.unique(np.geomspace(lo, max(4 * sess.capacity, lo + 7),
+                                      CURVE_CAPS).round().astype(np.int64))
+        t0 = time.perf_counter()
+        curve = sess.cost_curve(outer, caps)
+        sync()
+        secs["cost_curve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = JoinTreeSession(tree_inners, tree_system, tree_keys)
+        tree.calibrate(seed=args.seed)
+        tree_plan = tree.plan(tree_outer, grid=8)
+        sync()
+        secs["tree_plan"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree_stats = tree.execute(tree_plan)
+        secs["tree_execute"] = time.perf_counter() - t0
+    finally:
+        for u in reversed(undo):
+            u()
+    secs["join_path"] = time.perf_counter() - t_path
+    launches = read_counters(mods)
+
+    # ---- kernel and executor checks (launches here are not counted) -----
+    t0 = time.perf_counter()
+    price_err, zero_rows = 0.0, 0
+    for call, flags in recorder.price_calls:
+        f32s = call["f32s"]
+        zero_rows += int(((f32s[:, 0] == 0) & (f32s[:, 4] > 0)).sum())
+        price_err = max(price_err, compare_price(tpg, call, flags, 1e-5))
+    dh, executors = 0.0, sorted({sol.executor for _, _, sol in log.calls})
+    for engine, table, sol in log.calls:
+        host = PricingEngine(engine.cost, executor="host").price(
+            table, objective=sol.objective_name)
+        dh = max(dh, float(np.abs(sol.hit_rates - host.hit_rates).max()))
+    timing = []
+    for call, flags in recorder.price_calls if on_card else ():
+        nbytes, ops = price_work(call, flags)
+        b_ms, b_by = bound(nbytes, ops)
+        ms, call_ms = cuda_times(lambda: run_price(tpg.price_grid, call,
+                                                   flags))
+        plain = cuda_ms(lambda: run_price(tpg.price_grid_ref, call, flags),
+                        reps=3, warmup=1)
+        timing.append(dict(
+            shape=list(call["probs"].shape) + [call["caps_i"].shape[1]],
+            policy=call["policy"], has_sorted=bool(flags["has_sorted"]),
+            ms=ms, call_ms=call_ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by))
+    secs["checks"] = time.perf_counter() - t0
+
+    replayed = {s: st.seconds for s, st in stats.items()}
+    best = min(replayed, key=replayed.get)
+    qerr = {s: float(q_error(choice.plans[s].cost.physical_ios,
+                             max(stats[s].physical_ios, 1)))
+            for s in STRATEGIES}
+    rise = {s: max(0.0, float(np.diff(curve.physical_ios[s]).max()
+                              / max(curve.physical_ios[s].max(), 1.0)))
+            for s in STRATEGIES}
+    table3 = ("lambda_point", "lambda_range", "alpha", "beta", "eta",
+              "delta")
+    out = {
+        "phase": "join", "inner_keys": len(keys), "outer_probes": n_outer,
+        "buffer_bytes": buffer_bytes, "capacity_pages": sess.capacity,
+        "inner_pages": sess.num_pages, "index_eps": JOIN_EPS,
+        "reduced": [
+            f"inner keys {PAPER.join_inner:,} -> {len(keys):,} (books, "
+            f"seed {args.seed}; the main path's cut)",
+            f"outer probes {PAPER.join_outer:,} -> {n_outer:,} (the same "
+            "ratio, so probes per inner page stay the paper's)",
+            f"buffer {PAPER.join_buffer_bytes / 2**20:g} MiB -> "
+            f"{buffer_bytes / 2**20:.4g} MiB (the same ratio)"],
+        "seconds": secs,
+        "calibration": {"fitted": {k: getattr(params, k) for k in table3},
+                        "paper_table3": {k: getattr(PAPER, k)
+                                         for k in table3},
+                        "note": "fitted against the simulated machine"},
+        "strategies": {s: dict(
+            predicted_seconds=choice.costs[s].seconds,
+            predicted_io=choice.costs[s].physical_ios,
+            replayed_seconds=stats[s].seconds,
+            replayed_io=stats[s].physical_ios, io_q_error=qerr[s],
+            segments=stats[s].n_segments,
+            range_segments=stats[s].n_range_segments,
+            matches=stats[s].matches) for s in STRATEGIES},
+        "chosen": choice.strategy, "replayed_best": best,
+        "chosen_over_best_replayed": replayed[choice.strategy]
+        / replayed[best],
+        "inlj_over_hybrid_replayed": replayed["inlj"] / replayed["hybrid"],
+        "cost_curve": {"capacities": caps.tolist(),
+                       "io": {s: curve.physical_ios[s].tolist()
+                              for s in STRATEGIES},
+                       "max_relative_rise": rise},
+        "tree": {"levels": tree.n_levels, "pool_pages": tree.pool_pages,
+                 "policy": tree_system.policy,
+                 "fractions": list(tree_plan.fractions),
+                 "capacities": list(tree_plan.capacities),
+                 "strategies": list(tree_plan.strategies),
+                 "predicted_seconds": tree_plan.cost.seconds,
+                 "replayed_seconds": tree_stats.seconds,
+                 "predicted_io": tree_plan.cost.physical_ios,
+                 "replayed_io": tree_stats.physical_ios,
+                 "matches": tree_stats.matches},
+        "launches": launches, "engine_calls": len(log.calls),
+        "executors": executors, "price_grid_calls": len(recorder.price_calls),
+        "zero_histogram_sorted_rows": zero_rows,
+        "price_grid_max_abs_err": price_err, "max_abs_dh_vs_host": dh,
+        "price_grid_at_join_shapes": timing}
+    emit(out)                      # the phase's numbers before its checks
+
+    check(replayed[choice.strategy] <= CHOICE_BOUND * replayed[best],
+          f"join: chose {choice.strategy} ({replayed[choice.strategy]:.4g} "
+          f"s replayed), best {best} ({replayed[best]:.4g} s)")
+    for s in STRATEGIES:
+        check(qerr[s] < JOIN_QERR_BOUND, f"join {s}: I/O q-error "
+                                         f"{qerr[s]:.3f} >= {JOIN_QERR_BOUND}")
+        check(rise[s] <= 1e-6, f"join {s}: cost curve rises with capacity "
+                               f"({rise[s]:.3g} of its largest value)")
+    check(abs(sum(tree_plan.fractions) - 1.0) < 1e-9
+          and sum(tree_plan.capacities) <= tree.pool_pages
+          and np.isfinite(tree_stats.seconds) and tree_stats.logical_refs > 0,
+          f"join tree: plan {tree_plan.fractions} / {tree_plan.capacities}")
+    check(price_err <= 1e-5, f"join price_grid vs plain {price_err:.3g}")
+    check(dh <= 1e-5, f"join: device vs host executor max |dh| {dh:.3g}")
+    if on_card:
+        check(launches["price_grid"] > 0, "price_grid never launched on "
+                                          "the join path")
+        check(executors == ["device"], f"join path priced through "
+                                       f"{executors}, not the kernel")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--keys", type=int, default=PAPER_KEYS // 10)
+    ap.add_argument("--keys", type=int, default=None,
+                    help="inner keys (default: the paper's 200M / 10)")
     ap.add_argument("--queries", type=int, default=1_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -1230,6 +1478,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     import numpy as np
     import torch
+
+    from repro_torch.configs.cam_paper import PAPER
+    if args.keys is None:
+        args.keys = PAPER.keys_per_dataset // 10
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -1359,6 +1611,12 @@ def main(argv=None) -> int:
     check(np.isfinite([results[n].est_io for n in ("pgm", "rmi", "multi")]
                       ).all(), "non-finite estimates")
 
+    # ---- 5b. the join path: §VII-A's join setup at the same cut ------------
+    mods = {"price_grid": tpg, "profile_grid": tprof, "che_solver": tche,
+            "flash_attention": tfa, "decode_attention": tda}
+    join_launches = join_phase(args, torch, np, mods, world["keys"], pgm,
+                               sync, on_card)
+
     # ---- 6. the serving path: yi-34b at full width -------------------------
     del world, pgm, rmi, recorder, results, host, che_operands
     gc.collect()
@@ -1375,6 +1633,8 @@ def main(argv=None) -> int:
         print("chip_smoke: CPU rehearsal finished; no result without a GPU",
               file=sys.stderr)
         return 3
+    for row in kernels:
+        row["join_launches"] = join_launches[row["name"]]
     emit({"total_seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

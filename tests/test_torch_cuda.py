@@ -568,3 +568,59 @@ def test_serve_engine_pallas_path_launches_both_attention_kernels(dev, arch):
     torch.testing.assert_close(a.prefill_logits, b.prefill_logits,
                                atol=1e-4, rtol=1e-4)
     assert np.array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("policy", ("lru", "fifo", "lfu"))
+def test_price_grid_on_join_curve_rows(dev, policy):
+    """The join's curve table: a zero-histogram row with a sorted part
+    (``total`` 0) and an INLJ row, each at several capacities, priced
+    through the DeviceExecutor on the card and held against the plain
+    version on the recorded operands at 1e-5."""
+    from repro_torch.core.cam import CamGeometry
+    from repro_torch.core.session import System
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.workloads import WorkloadSpec, join_outer_keys
+    from repro_torch.engine import PricingEngine
+    from repro_torch.index.adapters import PGMAdapter
+    from repro_torch.join.session import JoinSession, curve_price_table
+
+    keys = make_dataset("books", 100_000, seed=5)
+    outer = join_outer_keys(keys, 8_000, WorkloadSpec("w4", seed=9))
+    inner = PGMAdapter.build(keys, eps=32)
+    sess = JoinSession(inner, System(CamGeometry(),
+                                     (1 << 20) + inner.size_bytes, policy),
+                       inner_keys=keys)
+    states = [("a", sess._curve_state(outer)),
+              ("b", sess._curve_state(outer[:3000]))]
+    caps = np.array([2, 16, 64, 200, 390])
+    table = curve_price_table(states, caps, device=dev)
+    prof = table.profiles
+    assert prof.counts.device.type == "cuda"
+    zero_sorted = [i for i, kn in enumerate(prof.knobs) if kn[1] == "sorted"]
+    assert zero_sorted and all(prof.totals[i] == 0.0 for i in zero_sorted)
+    assert all(float(prof.counts[i].abs().sum()) == 0.0 for i in zero_sorted)
+    calls = []
+    real = tpg.price_grid
+
+    def grab(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    tpg.price_grid = grab
+    try:
+        before = tpg.launches
+        sol = PricingEngine(sess._cost_session,
+                            executor="device").price(table)
+        torch.cuda.synchronize()
+    finally:
+        tpg.price_grid = real
+    assert tpg.launches == before + 1 and len(calls) == 1
+    assert sol.executor == "device"
+    a, kw = calls[0]
+    assert kw["has_sorted"]
+    h, bv, bi = tpg.price_grid(*a, **kw)
+    hr, bvr, bir = tpg.price_grid_ref(*a, **kw)
+    assert float((h - hr).abs().max()) <= 1e-5
+    assert abs(float(bv) - float(bvr)) <= 1e-5 * abs(float(bvr)) + 1e-5
+    host = PricingEngine(sess._cost_session, executor="host").price(table)
+    assert np.abs(sol.hit_rates - host.hit_rates).max() <= 1e-5

@@ -34,7 +34,9 @@ def test_port_imports_without_jax_or_repro():
                  "kernels.flash_attention", "kernels.decode_attention",
                  "kernels.ops", "kernels.ref", "configs.yi_34b",
                  "distributed.sharding", "models.transformer", "models.model",
-                 "serve.engine", "serve.planner", "launch.serve"):
+                 "serve.engine", "serve.planner", "launch.serve",
+                 "join.session", "join.tree", "sim.machine",
+                 "configs.cam_paper"):
         assert "repro_torch." + name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
