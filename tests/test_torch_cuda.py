@@ -624,3 +624,96 @@ def test_price_grid_on_join_curve_rows(dev, policy):
     assert abs(float(bv) - float(bvr)) <= 1e-5 * abs(float(bvr)) + 1e-5
     host = PricingEngine(sess._cost_session, executor="host").price(table)
     assert np.abs(sol.hit_rates - host.hit_rates).max() <= 1e-5
+
+
+def _write_report(dev, executor):
+    from repro_torch.core.cam import CamGeometry
+    from repro_torch.core.session import GridCandidate, System
+    from repro_torch.serving.trace import synthetic_drifting_trace
+    from repro_torch.write import CamMergeScheduler, WriteConfig, WriteSession
+
+    keys = np.sort(np.random.default_rng(21).uniform(0, 1e9, 30_000))
+    geom = CamGeometry(c_ipp=64, page_bytes=4096)
+    trace = synthetic_drifting_trace(keys, [
+        {"events": 1000, "mix": (0.85, 0.05, 0.0, 0.1, 0.0, 0.0),
+         "hot_width": 0.08, "hot_frac": 0.95},
+        {"events": 1400, "mix": (0.25, 0.0, 0.0, 0.55, 0.15, 0.05),
+         "hot_center": 0.7, "hot_width": 0.25, "hot_frac": 0.8},
+        {"events": 1200, "mix": (0.92, 0.03, 0.0, 0.05, 0.0, 0.0),
+         "hot_width": 0.08, "hot_frac": 0.95}], seed=9)
+    sess = WriteSession(
+        keys, System(geom, 80 * geom.page_bytes, "lru", torch_device=dev),
+        CamMergeScheduler(),
+        candidate=GridCandidate(knob="live", eps=64, size_bytes=4096.0),
+        config=WriteConfig(batch_size=200, delta_capacity_entries=6000,
+                           delta_entry_bytes=256.0, horizon_batches=12.0,
+                           price_executor=executor))
+    dacs, real = [], sess.engine.price
+
+    def price(table, **kw):
+        dacs.append(np.asarray(table.profiles.dacs)[table.rows])
+        return real(table, **kw)
+
+    sess.engine.price = price
+    return sess.run(trace), dacs
+
+
+def test_write_session_on_the_card_matches_host_executor(dev):
+    """A small WriteSession on the card: the device executor launches
+    ``price_grid`` once per decision event and makes the host executor's
+    merge decisions, its I/O within rtol 1e-5 (or the 2e-6 hit-rate bound
+    through E[DAC] where h is within a few ulps of 1)."""
+    before = tpg.launches
+    got, _ = _write_report(dev, "device")
+    torch.cuda.synchronize()
+    assert tpg.launches - before == got.engine_calls == got.decision_events
+    want, dacs = _write_report(dev, "host")
+    assert [(r.merged, r.reason) for r in got.records] \
+        == [(r.merged, r.reason) for r in want.records]
+    events = [(g, w) for g, w in zip(got.records, want.records)
+              if w.reason != "no_reads_yet"]
+    assert len(events) == len(dacs)
+    for (g, w), dac in zip(events, dacs):
+        for f, cell in (("io_defer", 0), ("io_merged", 1)):
+            assert getattr(g, f) == pytest.approx(
+                getattr(w, f), rel=1e-5, abs=2e-6 * dac[cell]), f
+    assert got.total_io == pytest.approx(want.total_io, rel=1e-4)
+
+
+def test_sharding_solve_on_the_card_matches_host_executor(dev):
+    """A 4-shard fleet solve on the card: one ``price_grid`` launch, and
+    the host executor's boundaries, shares and knobs, I/O at rtol 1e-5."""
+    from repro_torch.core.cam import CamGeometry
+    from repro_torch.core.session import System
+    from repro_torch.core.workload import Workload
+    from repro_torch.engine import PricingEngine
+    from repro_torch.sharding import ShardingSession
+    from repro_torch.tuning.session import AnalyticSizeModel, PGMBuilder
+
+    n = 8192
+    keys = np.sort(np.random.default_rng(0).uniform(0, 1e6, n))
+    rng = np.random.default_rng(13)
+    hot = rng.integers(0, 1920, 3680)
+    pos = np.concatenate([hot, rng.integers(0, n, 320)])
+    rng.shuffle(pos)
+    wl = Workload.point(pos, n=n)
+    plans = {}
+    for executor in ("device", "host"):
+        sess = ShardingSession(
+            System(CamGeometry(c_ipp=64, page_bytes=4096), 8 * 1024, "lru",
+                   torch_device=dev), PGMBuilder(keys), 4, grid=8,
+            overrides={"eps": (4, 64)},
+            size_model=AnalyticSizeModel(lambda eps: n * 8.0 / eps + 64.0))
+        sess.cost._engine = PricingEngine(sess.cost, executor=executor)
+        before = tpg.launches
+        plans[executor] = sess.solve(wl)
+        torch.cuda.synchronize()
+        assert tpg.launches - before == (executor == "device")
+    got, want = plans["device"], plans["host"]
+    assert (got.boundaries, got.fractions) == (want.boundaries,
+                                               want.fractions)
+    assert [(s.knob, s.capacity_pages) for s in got.shards] \
+        == [(s.knob, s.capacity_pages) for s in want.shards]
+    assert got.io_per_query == pytest.approx(want.io_per_query, rel=1e-5)
+    np.testing.assert_allclose(got.boundary_totals, want.boundary_totals,
+                               rtol=1e-5)

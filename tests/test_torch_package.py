@@ -36,7 +36,10 @@ def test_port_imports_without_jax_or_repro():
                  "distributed.sharding", "models.transformer", "models.model",
                  "serve.engine", "serve.planner", "launch.serve",
                  "join.session", "join.tree", "sim.machine",
-                 "configs.cam_paper"):
+                 "configs.cam_paper", "serving.session", "serving.sketch",
+                 "write.session", "sharding.session",
+                 "launch.bench_serving_drift", "launch.bench_sharding",
+                 "launch.bench_write_path"):
         assert "repro_torch." + name in mods
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -461,3 +461,63 @@ def test_slice_end_to_end_matches_jax(world, engine_executor):
     gj = JCost(jsys).estimate_grid(_cands("jax"), jw["mixed"])
     for kn, est in gj.estimates.items():
         assert abs(est.hit_rate - gt.estimates[kn].hit_rate) < 2e-6
+
+
+# ---------------------------------------------------------------------------
+# est_io where the buffer holds nearly every page
+# ---------------------------------------------------------------------------
+
+#: budgets (in 4 KiB pages) whose buffer holds 192-195 of the key file's
+#: 196 pages once the index is paid for
+NEAR_FULL_PAGES = (198, 200, 204, 208, 256)
+
+
+def test_near_full_budget_est_io_within_jax_spread(world):
+    """Near-full budgets put (1 - h) E[DAC] at float32's resolution of h,
+    where rtol 1e-5 on ``est_io`` stops meaning anything: one ulp of h
+    moves it by 1e-5 to 1e-4 relative.  Measured here on every run: the
+    JAX package's own host-vs-device (interpret) spread over this scan, in
+    float32 ulps of h — over every cell of the tuned table and on
+    ``est_io`` / E[DAC].  The port, through both of its executors, must
+    pick JAX's knob and capacity and lie within that spread of one of the
+    JAX package's two executors at every budget."""
+    keys, jw, tw = world
+    ulp = 2.0 ** -24
+    size = lambda eps: 16.0 * len(keys) / (2.0 * eps)         # noqa: E731
+    kw = dict(overrides={"eps": EPS_GRID})
+
+    def cells(res):
+        return np.asarray([c.hit_rate for kn in sorted(res.table)
+                           for c in res.table[kn]])
+
+    runs, spread_h, spread_io = [], 0.0, 0.0
+    for pages in NEAR_FULL_PAGES:
+        budget = pages * GEOM.page_bytes
+        jax = {}
+        for ex in ("host", "device"):
+            js = jtune.TuningSession(JSystem(JGEOM, budget, "lru"))
+            js.cost._engine = JEngine(js.cost, executor=ex)
+            jax[ex] = js.tune(jtune.PGMBuilder(keys), jw["point"],
+                              size_model=jtune.AnalyticSizeModel(size), **kw)
+        jh, jd = jax["host"], jax["device"]
+        dac = jh.estimates[jh.best_knob].dac
+        assert 0 < jh.est_io < 0.02 * dac          # h within 2% of 1
+        spread_h = max(spread_h, np.abs(cells(jh) - cells(jd)).max() / ulp)
+        spread_io = max(spread_io, abs(jh.est_io - jd.est_io) / dac / ulp)
+        runs.append((budget, jh, jd, dac))
+    assert 1.0 <= spread_h <= 8.0 and spread_io <= spread_h
+    for budget, jh, jd, dac in runs:
+        assert jh.capacity_pages >= 190
+        for ex in ("host", "device"):
+            ts = ttune.TuningSession(_system("lru", budget))
+            ts.cost._engine = PricingEngine(ts.cost, executor=ex)
+            rt = ts.tune(ttune.PGMBuilder(keys), tw["point"],
+                         size_model=ttune.AnalyticSizeModel(size), **kw)
+            assert (rt.best, rt.split, rt.capacity_pages) \
+                == (jh.best, jh.split, jh.capacity_pages), (budget, ex)
+            near_h = np.minimum(np.abs(cells(rt) - cells(jh)),
+                                np.abs(cells(rt) - cells(jd))).max() / ulp
+            near_io = min(abs(rt.est_io - jh.est_io),
+                          abs(rt.est_io - jd.est_io)) / dac / ulp
+            assert near_h <= spread_h, (budget, ex, near_h, spread_h)
+            assert near_io <= spread_io, (budget, ex, near_io, spread_io)
