@@ -24,7 +24,9 @@
 //   * 16-byte loads: a cache row of D values is read by D * sizeof(T) / 16
 //     neighbouring threads (16 for bf16 D = 128, a warp reads two whole
 //     rows a load), four rows a thread issued before any is used.  K and V
-//     loads of a chunk go out together.
+//     loads of a chunk go out together.  Where that count is not a power of
+//     two (D = 80), a row takes the next power of two of threads and the
+//     rest idle through the loads (Shape below).
 //   * Scores: each thread dots its 16 bytes of a K row with the same slice
 //     of the g query rows (float32, shared memory) and the row's threads
 //     reduce the g partial sums with __shfl_xor_sync, halving the heads a
@@ -121,12 +123,22 @@ __device__ __forceinline__ int reduce_heads(float (&v)[N], int lane_in_row) {
   return (lane_in_row & copies) ? -1 : head0;
 }
 
+constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
+// A cache row of D values is kLive 16-byte slices, read by the first kLive
+// of kTpr = pow2_ceil(kLive) neighbouring threads: row groups must be a
+// power of two wide for the shuffles.  For D = 32, 64 and 128 the two are
+// equal; for D = 80 (10 slices in bf16, 20 in float32) the last 6 / 12
+// threads of a row group load nothing, add zeros to the score sums and
+// keep no output columns (a masked tail).
 template <typename TC, int D>
 struct Shape {
   static constexpr int kVec = 16 / static_cast<int>(sizeof(TC));
-  static constexpr int kTpr = D / kVec;          // threads a cache row
+  static constexpr int kLive = D / kVec;           // 16-byte slices a row
+  static constexpr int kTpr = pow2_ceil(kLive);    // threads a cache row
   static constexpr int kGroups = kThreads / kTpr;  // rows in flight a load
   static constexpr int kChunk = kGroups * kRowsPerThread;
+  static_assert(kLive * kVec == D && kTpr <= 32, "unsupported head dim");
 };
 
 // Split `blockIdx.x` of (batch blockIdx.z, KV head blockIdx.y).  With one
@@ -142,7 +154,7 @@ __global__ void __launch_bounds__(kThreads) decode_fwd_split(
     int Hk, int n_splits, int split_len, float scale) {
   using Sh = Shape<TC, D>;
   constexpr int VEC = Sh::kVec, TPR = Sh::kTpr, RG = Sh::kGroups,
-                C = Sh::kChunk;
+                C = Sh::kChunk, LIVE = Sh::kLive;
   __shared__ __align__(16) float qs[GMAX * D];
   __shared__ float sc[GMAX * C];
   __shared__ __align__(16) float red[kWarps * GMAX * D];
@@ -153,6 +165,7 @@ __global__ void __launch_bounds__(kThreads) decode_fwd_split(
   const int warp = tid >> 5;
   const int rg = tid / TPR;        // row group
   const int cq = tid - rg * TPR;   // 16-byte slice of the row
+  const bool live = LIVE == TPR || cq < LIVE;   // false in a masked tail
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
@@ -182,8 +195,8 @@ __global__ void __launch_bounds__(kThreads) decode_fwd_split(
     return;
   }
 
-  const TC* kb = k + b * ksb + hk * ksh + cq * VEC;
-  const TC* vb = v + b * vsb + hk * vsh + cq * VEC;
+  const TC* kb = k + b * ksb + hk * ksh + (live ? cq : 0) * VEC;
+  const TC* vb = v + b * vsb + hk * vsh + (live ? cq : 0) * VEC;
   if (tid < GMAX) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -204,9 +217,10 @@ __global__ void __launch_bounds__(kThreads) decode_fwd_split(
       const int t = c0 + r;
       vr[i] = make_uint4(0u, 0u, 0u, 0u);
       kr[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (r < n && t < len)
+      if (live && r < n && t < len)
         kr[i] = __ldg(reinterpret_cast<const uint4*>(kb + t * kss));
-      if (r < n) vr[i] = __ldg(reinterpret_cast<const uint4*>(vb + t * vss));
+      if (live && r < n)
+        vr[i] = __ldg(reinterpret_cast<const uint4*>(vb + t * vss));
     }
     // scores of this chunk: sc[hh][r]
 #pragma unroll
@@ -218,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) decode_fwd_split(
 #pragma unroll
       for (int hh = 0; hh < GMAX; ++hh) {
         sh[hh] = 0.f;
-        if (hh < g) {
+        if (live && hh < g) {
           const float4* qr =
               reinterpret_cast<const float4*>(qs + hh * D + cq * VEC);
 #pragma unroll
@@ -305,7 +319,7 @@ __global__ void __launch_bounds__(kThreads) decode_fwd_split(
 #pragma unroll
       for (int off = TPR; off < 32; off <<= 1)
         a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (lane < TPR) red[(warp * GMAX + hh) * D + cq * VEC + e] = a;
+      if (lane < TPR && live) red[(warp * GMAX + hh) * D + cq * VEC + e] = a;
     }
   }
   __syncthreads();
@@ -434,6 +448,8 @@ int dispatch_d(int D, const Args& a, cudaStream_t stream) {
       return dispatch_g<TQ, TC, 32>(a, stream);
     case 64:
       return dispatch_g<TQ, TC, 64>(a, stream);
+    case 80:
+      return dispatch_g<TQ, TC, 80>(a, stream);
     case 128:
       return dispatch_g<TQ, TC, 128>(a, stream);
     default:
@@ -449,7 +465,7 @@ int dispatch_d(int D, const Args& a, cudaStream_t stream) {
 // int32; out (B, 1, H, D) contiguous in q's type.  (q_dtype, cache_dtype):
 // (0, 0) float32, (1, 1) bfloat16, or (0, 1) a float32 query over a
 // bfloat16 cache, as the serve path's float32 models use; D in {32, 64,
-// 128}; H / Hk <= 16.  The cache is cut into n_splits ranges of split_len
+// 80, 128}; H / Hk <= 16.  The cache is cut into n_splits ranges of split_len
 // positions (the last takes the rest); with n_splits > 1, part is float32
 // scratch of B * Hk * n_splits * (H / Hk) * (D + 2) values.
 extern "C" int decode_attention_launch(

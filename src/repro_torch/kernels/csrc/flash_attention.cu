@@ -50,6 +50,11 @@
 //   64 x 64 tiles, K staged transposed, P through shared memory).  TF32
 //   tensor cores would round the inputs to 10 mantissa bits and break the
 //   1e-4 float32 parity the tests hold, so float32 stays on the CUDA cores.
+// Head dims: 32, 64, 80 and 128.  Both instantiations need only D % 16 == 0:
+//   D = 80 is 5 k16 steps of Q K^T, 10 n8 tiles (5 ldmatrix.x4.trans pairs)
+//   of P V, 160-byte rows in 10 cp.async chunks padded to 176 bytes (11
+//   16-byte units, odd, so an ldmatrix's 8 rows still hit 8 bank groups);
+//   the float32 kernel's threads own 5 output columns each.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -548,6 +553,11 @@ int dispatch_d(int D, const void* q, Strides qs, const void* k, Strides ks,
                                     Hk, causal, stream)
                    : launch_f32<64>(q, qs, k, ks, v, vs, out, B, Sq, Skv, H,
                                     Hk, causal, stream);
+    case 80:   // zamba2's shared attention (2560 / 32 heads)
+      return kBf16 ? launch_mma<80>(q, qs, k, ks, v, vs, out, B, Sq, Skv, H,
+                                    Hk, causal, stream)
+                   : launch_f32<80>(q, qs, k, ks, v, vs, out, B, Sq, Skv, H,
+                                    Hk, causal, stream);
     case 128:
       return kBf16 ? launch_mma<128>(q, qs, k, ks, v, vs, out, B, Sq, Skv, H,
                                      Hk, causal, stream)
@@ -564,7 +574,7 @@ int dispatch_d(int D, const void* q, Strides qs, const void* k, Strides ks,
 // seq, head) with D contiguous; out (B, Sq, H, D) contiguous.  dtype 0 =
 // float32, 1 = bfloat16 (bf16 operands need 16-byte-aligned bases and
 // strides that are multiples of 8 elements: the wrapper checks); D in
-// {32, 64, 128}; H a multiple of Hk.
+// {32, 64, 80, 128}; H a multiple of Hk.
 extern "C" int flash_attention_launch(
     int dtype, int D, int causal, int B, int Sq, int Skv, int H, int Hk,
     const void* q, long long qsb, long long qss, long long qsh,

@@ -43,7 +43,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (query, cache) dtype pairs the kernel takes.
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16)}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 80, 128)
 _MAX_GROUP = 16
 #: The split chooser's targets: CTAs an SM (the split kernel's registers,
 #: ~160 a thread at 128 threads, leave room for 3), fewest positions a

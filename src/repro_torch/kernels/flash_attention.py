@@ -37,7 +37,7 @@ __all__ = ["flash_attention", "flash_attention_ref", "launches"]
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def _check(q, k, v, causal: bool) -> None:

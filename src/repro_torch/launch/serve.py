@@ -43,8 +43,10 @@ def main(argv=None):
                          device=dev)
 
     rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           size=(args.batch, args.prompt_len)).astype(np.int32)
+    shape = (args.batch, args.prompt_len)
+    if cfg.family == "audio":
+        shape = shape + (cfg.num_codebooks,)
+    prompts = rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)
     res = engine.generate(prompts, max_new_tokens=args.new_tokens)
     print(f"arch={cfg.name}: generated {res.steps} tokens/seq for "
           f"{args.batch} seqs; prefill={res.prefill_seconds:.2f}s "

@@ -1,6 +1,7 @@
 """The language models of the serving path, in eager PyTorch.
 
-Mirrors ``repro/models`` for the dense transformer family (``layers``,
-``attention``, ``params``, ``transformer``, ``model``); the other families
-raise ``NotImplementedError`` until their slice of the port lands.
+Mirrors ``repro/models`` for every family: GQA transformers (dense / MoE /
+VLM / audio, ``transformer`` and ``moe``), RWKV6 (``rwkv``) and the Zamba2
+hybrid (``mamba2``), behind ``model``'s dispatch.  The training side
+(losses, remat) is not ported yet.
 """

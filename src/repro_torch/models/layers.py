@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["matmul_f32", "rms_norm", "swiglu", "gelu_mlp", "rope", "mrope",
+__all__ = ["matmul_f32", "bmm_f32", "rms_norm", "swiglu", "gelu_mlp", "rope", "mrope",
            "take_embedding"]
 
 
@@ -30,6 +30,15 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                        out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` (3-D operands) as :func:`matmul_f32`: the promoted
+    type of the two, accumulated and returned in float32."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if dt != torch.float32 and a.device.type == "cuda":
+        return torch.bmm(a.to(dt), b.to(dt), out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 def rms_norm(x, scale, eps: float = 1e-5):

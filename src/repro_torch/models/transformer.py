@@ -1,11 +1,13 @@
-"""Decoder-only transformer forward passes for the dense family.
+"""Decoder-only transformer forward passes (dense / MoE / VLM / audio).
 
-Mirrors ``repro/models/transformer.py`` for inference: embedding, the block
-function, full-sequence logits, prefill (last-token logits + per-layer KV)
-and one decode step against a static KV cache.  Depth is a Python loop over
-views of the layer-stacked ``(L, ...)`` tensors where JAX scans; there is
-no remat on this inference-only path.  The decode step writes the new
-token's K/V into the cache in place (JAX returns a new cache).
+Mirrors ``repro/models/transformer.py`` for inference: embedding (token,
+VLM merge, summed audio codebooks), the block function (dense MLP or MoE
+with shared experts), full-sequence logits, prefill (last-token logits +
+per-layer KV) and one decode step against a static KV cache, bfloat16 or
+int8 with per-(token, head) scales.  Depth is a Python loop over views of
+the layer-stacked ``(L, ...)`` tensors where JAX scans; there is no remat
+on this inference-only path.  The decode step writes the new token's K/V
+(and scales) into the cache in place (JAX returns a new cache).
 """
 from __future__ import annotations
 
@@ -15,11 +17,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers
-from repro_torch.models.params import check_family
+from repro_torch.models import layers, moe
 
-__all__ = ["embed_inputs", "make_block_fn", "transformer_logits",
-           "transformer_prefill", "transformer_decode", "init_kv_cache"]
+__all__ = ["embed_inputs", "make_block_fn", "head_logits",
+           "transformer_logits", "transformer_prefill", "transformer_decode",
+           "init_kv_cache", "write_kv"]
 
 
 def _layer(params, l: int) -> Dict[str, torch.Tensor]:
@@ -27,8 +29,18 @@ def _layer(params, l: int) -> Dict[str, torch.Tensor]:
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, Any], ctx):
-    check_family(cfg)
-    h = layers.take_embedding(params["embed"], batch["tokens"], ctx)
+    if cfg.family == "audio":
+        toks = batch["tokens"]                                 # (B, S, C)
+        h = sum(layers.take_embedding(params["codebook_embed"][c],
+                                      toks[..., c], ctx)
+                for c in range(cfg.num_codebooks))
+    else:
+        h = layers.take_embedding(params["embed"], batch["tokens"], ctx)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        vis = layers.matmul_f32(batch["vision_embeds"],
+                                params["vision_proj"]).to(h.dtype)
+        # frontend stub: vision tokens occupy the first num_vision_tokens slots
+        h = torch.cat([vis, h[:, vis.shape[1]:]], dim=1)
     h = h.to(torch.bfloat16 if cfg.dtype == "bfloat16" else h.dtype)
     return ctx.constrain(h, "batch", "seq", "act_embed")
 
@@ -61,10 +73,15 @@ def _apply_rope(q, k, cfg, positions, pos3d):
 
 
 def _mlp(x, blk, cfg, ctx):
-    """Dense MLP sublayer. Returns (out, aux)."""
+    """Dense MLP or MoE sublayer. Returns (out, aux)."""
     if cfg.is_moe:
-        raise NotImplementedError("MoE layers come with a later slice of "
-                                  "the port")
+        out, aux = moe.moe_block(
+            x, blk["router"], blk["moe_gate"], blk["moe_up"], blk["moe_down"],
+            cfg.experts_per_tok, cfg.capacity_factor, ctx)
+        if cfg.num_shared_experts:
+            out = out + layers.swiglu(x, blk["sh_gate"], blk["sh_up"],
+                                      blk["sh_down"], ctx)
+        return out, aux
     if cfg.mlp_type == "swiglu":
         return layers.swiglu(x, blk["w_gate"], blk["w_up"], blk["w_down"],
                              ctx), 0.0
@@ -131,12 +148,21 @@ def _forward(params, cfg: ModelConfig, batch, ctx, return_kv: bool):
     return layers.rms_norm(h, params["final_ln"], cfg.norm_eps), aux, kv
 
 
+def head_logits(params, cfg: ModelConfig, h):
+    """Float32 logits of hidden states ``h`` (..., D): (..., V), or
+    (..., C, V) for the audio family's per-codebook heads."""
+    if cfg.family == "audio":
+        return torch.stack([layers.matmul_f32(h, w)
+                            for w in params["lm_head"].unbind(0)], dim=-2)
+    return layers.matmul_f32(h, params["lm_head"])
+
+
 def transformer_logits(params, cfg: ModelConfig, batch, ctx,
                        return_kv: bool = False):
-    """(B, S, V) float32 logits, the auxiliary loss (0 for dense) and, with
-    ``return_kv``, the stacked per-layer K/V."""
+    """(B, S, V) float32 logits ((B, S, C, V) for audio), the auxiliary
+    loss (0 for dense) and, with ``return_kv``, the stacked per-layer K/V."""
     h, aux, kv = _forward(params, cfg, batch, ctx, return_kv)
-    return layers.matmul_f32(h, params["lm_head"]), aux, kv
+    return head_logits(params, cfg, h), aux, kv
 
 
 def transformer_prefill(params, cfg: ModelConfig, batch, ctx):
@@ -146,35 +172,74 @@ def transformer_prefill(params, cfg: ModelConfig, batch, ctx):
     JAX's full logits sliced at -1, without the (B, S, V) tensor.
     """
     h, _, (k_cache, v_cache) = _forward(params, cfg, batch, ctx, True)
-    return layers.matmul_f32(h[:, -1], params["lm_head"]), {"k": k_cache,
-                                                           "v": v_cache}
+    return head_logits(params, cfg, h[:, -1]), {"k": k_cache, "v": v_cache}
 
 
 def init_kv_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                   dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
     """The cache's shapes and dtype as ``meta`` tensors (JAX returns
-    ``ShapeDtypeStruct``s); the engine allocates them on its device."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(f"KV cache dtype {dtype}: the int8 cache "
-                                  "comes with a later slice of the port")
+    ``ShapeDtypeStruct``s); the engine allocates them on its device.  An
+    int8 cache carries float32 per-(token, head) absmax scales beside it."""
     shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
              cfg.head_dim)
-    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
-            "v": torch.empty(shape, dtype=dtype, device="meta")}
+    cache = {"k": torch.empty(shape, dtype=dtype, device="meta"),
+             "v": torch.empty(shape, dtype=dtype, device="meta")}
+    if dtype == torch.int8:
+        # per-(token, head) absmax scales: ~6% overhead at head_dim 64,
+        # halving decode's dominant HBM term (cache streaming)
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.empty(shape[:-1], dtype=torch.float32,
+                                      device="meta")
+    return cache
+
+
+def _quantize_kv(x):
+    """x: (B, Hk, D) -> (int8 values, (B, Hk) float32 scales); rounds half
+    to even, as ``jnp.round``."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def write_kv(cache, l: int, bidx, lengths, k, v):
+    """Writes one token's K/V (B, 1, Hk, D) at ``lengths`` into layer ``l``
+    of ``cache`` in place and returns the layer's (K, V) for attention:
+    the cache itself, or an int8 cache dequantized.
+
+    JAX dequantizes as ``int8.astype(bf16) * scale.astype(bf16)``.  That
+    product of a 7-bit integer and a bf16 scale is exact in float32; the
+    port rounds it to the activations' type: bfloat16 on the serve path
+    (JAX's bf16 product), float32 for a float32 model (where XLA's CPU
+    backend keeps the float32 product too)."""
+    k_l, v_l = cache["k"][l], cache["v"][l]
+    if "k_scale" not in cache:
+        k_l[bidx, lengths] = k[:, 0].to(k_l.dtype)
+        v_l[bidx, lengths] = v[:, 0].to(v_l.dtype)
+        return k_l, v_l
+    out = []
+    for x, vals, scales in ((k, k_l, cache["k_scale"][l]),
+                            (v, v_l, cache["v_scale"][l])):
+        xq, xs = _quantize_kv(x[:, 0])
+        vals[bidx, lengths] = xq
+        scales[bidx, lengths] = xs
+        out.append((vals.float() * scales[..., None].to(torch.bfloat16)
+                    .float()).to(x.dtype))
+    return tuple(out)
 
 
 def transformer_decode(params, cfg: ModelConfig, batch, cache, ctx):
-    """One decode step: batch has tokens (B,1) and lengths (B,).
+    """One decode step: batch has tokens (B,1) ((B,1,C) for audio) and
+    lengths (B,).
 
     Writes each layer's new K/V at ``lengths`` into ``cache`` in place and
     returns (last-token logits, cache).
     """
-    if "k_scale" in cache:
-        raise NotImplementedError("the int8 KV cache comes with a later "
-                                  "slice of the port")
     lengths = batch["lengths"]
     h = embed_inputs(params, cfg, batch, ctx)                  # (B,1,D)
     pos = lengths[:, None].to(torch.int32)                     # (B,1)
+    # M-RoPE at a text position: the same id on all three channels
+    pos3 = pos[None].expand(3, *pos.shape) if cfg.mrope else None
     b = h.shape[0]
     bidx = torch.arange(b, device=h.device)
     impl = ctx.recipe.attn_impl
@@ -182,14 +247,13 @@ def transformer_decode(params, cfg: ModelConfig, batch, cache, ctx):
         blk = _layer(params, l)
         x = layers.rms_norm(h, blk["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(x, blk, cfg, ctx)
-        q, k = _apply_rope(q, k, cfg, pos, None)
-        k_l, v_l = cache["k"][l], cache["v"][l]
-        k_l[bidx, lengths] = k[:, 0].to(k_l.dtype)
-        v_l[bidx, lengths] = v[:, 0].to(v_l.dtype)
-        out = attn_mod.decode_attention(q, k_l, v_l, lengths + 1, impl=impl)
+        q, k = _apply_rope(q, k, cfg, pos, pos3)
+        k_use, v_use = write_kv(cache, l, bidx, lengths, k, v)
+        out = attn_mod.decode_attention(q, k_use, v_use, lengths + 1,
+                                        impl=impl)
         h = _attn_out(out, blk, cfg, h)
         x2 = layers.rms_norm(h, blk["ln2"], cfg.norm_eps)
         y, _ = _mlp(x2, blk, cfg, ctx)
         h = h + y.to(h.dtype)
     h = layers.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return layers.matmul_f32(h[:, -1], params["lm_head"]), cache
+    return head_logits(params, cfg, h[:, -1]), cache

@@ -2,8 +2,10 @@
 model API, in eager PyTorch on one explicit device (the card by default).
 
 Mirrors ``repro/serve/engine.py``.  The decode cache is allocated once at
-``max_seq`` and written in place each step; the prefill's K/V are spliced
-into its leading positions.
+``max_seq``; the prefill's K/V are spliced into its leading positions, and
+its recurrent states (RWKV, Mamba2) replace the cache's, by JAX's rule
+(``_splice_prefill``).  A transformer step writes its K/V in place; the
+recurrent families' steps return new state leaves, as in JAX.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int = 16
                  ) -> GenerationResult:
-        """prompts: (B, S0) int32. Greedy decoding."""
+        """prompts: (B, S0) int32 (audio: (B, S0, C)). Greedy decoding."""
         b, s0 = prompts.shape[:2]
         if s0 + max_new_tokens > self.max_seq:
             raise ValueError(f"prompt {s0} + {max_new_tokens} new tokens "
@@ -66,17 +68,15 @@ class ServeEngine:
         self._sync()
         t_prefill = time.perf_counter() - t0
 
-        cache = self._empty_cache(b)
-        for name, src in prefill_cache.items():
-            cache[name][:, :, :src.shape[2]] = src
-        del prefill_cache, src
+        cache = _splice_prefill(self._empty_cache(b), prefill_cache)
+        del prefill_cache
         lengths = torch.full((b,), s0, dtype=torch.int32, device=self.device)
-        next_tok = torch.argmax(logits, dim=-1)
+        next_tok = torch.argmax(logits, dim=-1)               # (B[,C])
 
         out = [tokens]
         t0 = time.perf_counter()
         for _ in range(max_new_tokens):
-            tok = next_tok[:, None]
+            tok = next_tok[:, None]                           # (B,1[,C])
             out.append(tok)
             step_logits, cache = model_mod.decode_fn(
                 self.params, self.cfg, {"tokens": tok, "lengths": lengths},
@@ -88,3 +88,20 @@ class ServeEngine:
         toks = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
         return GenerationResult(toks, t_prefill, t_decode, max_new_tokens,
                                 logits)
+
+
+def _splice_prefill(cache, prefill_cache):
+    """Copy prefill KV/state into the (larger) decode cache buffers: a
+    leaf that differs from its buffer in shape (the sequence-extended KV)
+    is written into the buffer's leading slice; any other leaf replaces
+    its buffer, cast to the buffer's type."""
+    out = {}
+    for name, dst in cache.items():
+        src = prefill_cache[name]
+        if dst.dim() >= 3 and src.dim() == dst.dim() \
+                and src.shape != dst.shape:
+            dst[tuple(slice(0, n) for n in src.shape)] = src
+            out[name] = dst
+        else:
+            out[name] = src.to(dst.dtype)
+    return out

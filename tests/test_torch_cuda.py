@@ -230,6 +230,8 @@ def _normal(rng, shape, dtype, dev):
     (2, 96, 8, 1, 64),       # MQA 8:1, ragged against the 64-row tiles
     (1, 300, 14, 2, 128),    # GQA 7:1 (yi-34b's group), ragged
     (1, 256, 8, 1, 128),     # 8:1, full head dim
+    (2, 200, 8, 8, 80),      # zamba2's head dim, ragged
+    (1, 130, 12, 4, 80),     # D 80 under GQA 3:1
 ])
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("causal", (True, False))
@@ -269,6 +271,8 @@ def test_flash_attention_kernel_reads_strided_views(dev):
     (3, 130, 8, 8, 32),
     (1, 512, 8, 2, 128),
     (4, 1064, 56, 8, 128),   # yi-34b's decode step
+    (4, 1064, 32, 32, 80),   # zamba2's decode step
+    (3, 300, 16, 2, 80),     # D 80 under GQA 8:1
 ])
 @pytest.mark.parametrize("dtype,cache_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -308,6 +312,10 @@ def test_decode_attention_kernel_matches_plain(dev, b, s, h, hk, d, dtype,
     (1, 1, 777, 8, 2, 64, False),
     (1, 300, 129, 4, 4, 32, False),
     (1, 129, 63, 14, 2, 128, False),
+    (1, 1, 1, 4, 4, 80, True),           # D 80: one row
+    (2, 129, 129, 32, 32, 80, True),     # zamba2's heads, ragged K/V tile
+    (1, 1000, 1000, 8, 2, 80, True),
+    (2, 65, 200, 8, 8, 80, False),
 ])
 def test_flash_attention_tensor_core_edges(dev, b, sq, skv, h, hk, d, causal):
     """The bf16 route (mma.sync) at ragged query and key edges, each
@@ -398,6 +406,55 @@ def test_decode_attention_split_edges(dev, b, hk, g, s, dtype, cache_dtype):
         atol, rtol = _one_ulp(dtype)
         torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.parametrize("b,hk,g,s", DECODE_EDGES)
+@pytest.mark.parametrize("dtype,cache_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+def test_decode_attention_split_edges_head_dim_80(dev, b, hk, g, s, dtype,
+                                                  cache_dtype):
+    """The split edges at D 80, whose 10 (bf16) or 20 (float32) 16-byte
+    slices a row run on 16 or 32 threads with a masked tail."""
+    from repro_torch.kernels import decode_attention as tda
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, split_len = tda.decode_splits(b, hk, s, sms)
+    rng = np.random.default_rng(b * s + g + hk + 80)
+    q = _normal(rng, (b, 1, hk * g, 80), dtype, dev)
+    kc = _normal(rng, (b, s, hk, 80), cache_dtype, dev)
+    vc = _normal(rng, (b, s, hk, 80), cache_dtype, dev)
+    ragged = rng.integers(1, s + 1, b)
+    for first in (0, 1, min(split_len, s), s + 7):
+        lens = ragged.copy()
+        lens[0] = first
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        before = tda.launches
+        out = tda.decode_attention(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        assert tda.launches == before + 1
+        ref = tda.decode_attention_ref(q, kc, vc, lengths)
+        atol, rtol = _one_ulp(dtype)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_attention_kernels_refuse_unsupported_head_dims(dev, dtype):
+    """D 96 (and 16, the reduced hybrid's) raise ValueError on CUDA
+    tensors, and nothing is launched: no fallback to the plain version."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import flash_attention as tfa
+
+    for d in (96, 16):
+        q = torch.zeros((1, 64, 4, d), dtype=dtype, device=dev)
+        lens = torch.full((1,), 64, dtype=torch.int32, device=dev)
+        before = (tfa.launches, tda.launches)
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa.flash_attention(q, q, q, causal=True)
+        with pytest.raises(ValueError, match="head_dim"):
+            tda.decode_attention(q[:, :1], q, q, lens)
+        assert (tfa.launches, tda.launches) == before
 
 
 @pytest.mark.parametrize("dtype,cache_dtype", [
@@ -568,6 +625,103 @@ def test_serve_engine_pallas_path_launches_both_attention_kernels(dev, arch):
     torch.testing.assert_close(a.prefill_logits, b.prefill_logits,
                                atol=1e-4, rtol=1e-4)
     assert np.array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("arch", ("qwen2-moe-a2.7b", "qwen2-vl-7b",
+                                  "musicgen-medium", "zamba2-2.7b",
+                                  "rwkv6-3b"))
+def test_serve_engine_pallas_path_serves_every_family(dev, arch):
+    """A reduced model of each family (the hybrid at zamba2's head_dim 80)
+    served through the kernels gives the tokens of the plain (blockwise)
+    path; flash runs once an attention layer in prefill, decode once an
+    attention layer a step, and RWKV launches neither."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.sharding import Recipe
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, head_dim=80)
+    attn_layers = {"hybrid": cfg.num_layers // max(cfg.shared_attn_every, 1),
+                   "rwkv": 0}.get(cfg.family, cfg.num_layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    shape = (2, 288) + ((cfg.num_codebooks,) if cfg.family == "audio"
+                        else ())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, shape).astype(np.int32)
+    results = {}
+    for impl in ("pallas", "blockwise"):
+        eng = ServeEngine(cfg, params, recipe=Recipe(remat="none",
+                                                     attn_impl=impl),
+                          max_seq=300, device=dev)
+        f0, d0 = tfa.launches, tda.launches
+        results[impl] = eng.generate(prompts, max_new_tokens=4)
+        launched = (tfa.launches - f0, tda.launches - d0)
+        expect = ((attn_layers, 4 * attn_layers) if impl == "pallas"
+                  else (0, 0))
+        assert launched == expect, (impl, launched)
+    a, b = results["pallas"], results["blockwise"]
+    torch.testing.assert_close(a.prefill_logits, b.prefill_logits,
+                               atol=1e-4, rtol=1e-4)
+    assert np.array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_int8_cache_decode_reaches_the_decode_kernel(dev, dtype):
+    """The int8 cache dequantized to the activations' type goes through
+    the decode kernel once a layer under ``"pallas"`` and matches the plain
+    path's step: logits within 1e-4 / 2e-2, the written int8 values one
+    step apart at most (a value on a rounding boundary) and the scales
+    within the same tolerance."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import Recipe, ShardingCtx
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(reduced(ARCHS["musicgen-medium"]), dtype=dtype)
+    wdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=wdt, device=dev)
+    specs = model_mod.cache_specs(cfg, ShapeSpec("t", "decode", 64, 2),
+                                  kv_dtype=torch.int8)
+    rng = np.random.default_rng(0)
+    base = {n: torch.as_tensor(rng.integers(-127, 128, s.shape).astype(
+        np.int8), device=dev) if s.dtype == torch.int8 else
+        torch.as_tensor(rng.random(s.shape).astype(np.float32) / 127,
+                        device=dev) for n, s in specs.items()}
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 1, 4)),
+                           device=dev)
+    batch = {"tokens": toks,
+             "lengths": torch.tensor([17, 40], dtype=torch.int32,
+                                     device=dev)}
+    out = {}
+    for impl in ("pallas", "blockwise"):
+        cache = {n: t.clone() for n, t in base.items()}
+        before = tda.launches
+        with torch.inference_mode():
+            out[impl] = model_mod.decode_fn(
+                params, cfg, batch, cache,
+                ShardingCtx(None, Recipe(remat="none", attn_impl=impl)))
+        torch.cuda.synchronize()
+        assert tda.launches - before == (cfg.num_layers if impl == "pallas"
+                                         else 0)
+    (lp, cp), (lb, cb) = out["pallas"], out["blockwise"]
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert float((lp - lb).abs().max()) <= tol * float(lb.abs().max())
+    for n in ("k", "v"):          # the written values: one step apart at
+        assert int((cp[n].int() - cb[n].int()).abs().max()) <= 1   # most
+    for n in ("k_scale", "v_scale"):
+        torch.testing.assert_close(cp[n], cb[n], rtol=tol, atol=0)
 
 
 @pytest.mark.parametrize("policy", ("lru", "fifo", "lfu"))

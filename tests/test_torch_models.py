@@ -178,17 +178,6 @@ def test_init_params_draws_each_layer_and_matches_defs():
     assert torch.equal(again["blocks"]["w_down"], p["blocks"]["w_down"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "rwkv6-3b",
-                                  "zamba2-2.7b", "qwen2-vl-7b",
-                                  "musicgen-medium"])
-def test_unported_families_raise(arch):
-    cfg = treduced(TARCHS[arch])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tparams.param_defs(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tmodel.prefill_fn({}, cfg, {}, TCtx())
-
-
 def test_sharding_ctx_is_single_device():
     assert TRecipe() == TRecipe(**{f.name: getattr(Recipe(), f.name)
                                    for f in dataclasses.fields(Recipe)})
