@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) through CAM's main path,
 CAM's join layer, CAM's online layers (serving sketch, sharded fleet, write
-path) and the LM serving path of every model family on one NVIDIA GPU, and
-hold its six CUDA kernels against their plain versions.
+path), the LM serving path of every model family and LM training on one
+NVIDIA GPU, and hold its six CUDA kernels against their plain versions.
 
 Run from the root of a checkout::
 
@@ -111,7 +111,25 @@ prints its last line):
    logits within 2e-2, the first layer's (group's) states within 1e-3,
    every layer's recorded.  phi3.5-moe (~83.7 GB of bf16 weights) does not
    fit one card.  The attention kernels are then timed at zamba2's
-   head_dim-80 shapes.
+   head_dim-80 shapes;
+8. training, after the families' weights are freed: starcoder2-3b at full
+   width and depth (float32 masters from a seeded generator, bf16 compute,
+   ``Recipe(remat="block", microbatch=1, attn_impl="blockwise")``, float32
+   AdamW moments, lr 3e-4 with 5 warmup steps), 8 steps of 4 x 1,024
+   tokens from ``TokenPipeline`` through
+   ``repro_torch.launch.train.build_trainer``; one ``train`` line with
+   seconds a step, tokens/s, ``mfu`` (6·N·tokens over step seconds × 989
+   TFLOP/s), peak memory, every loss and grad norm, the six kernel
+   counters (zeroed before the phase; no kernel has a backward, so all
+   must read 0), a step with the AdamW update timed apart and a profiled
+   step.  Gates: finite losses and norms, the last loss below the first,
+   step 0 against a float32 compute copy of the same masters on the same
+   batch (loss within 2e-2, grad norm within 5e-2 relative), and
+   ``attention(impl="pallas")`` refusing inputs that require grad.  Then
+   the Supervisor leg: ``repro_torch.launch.train_lm`` at its full
+   configuration (8 x 512, 60 steps of 8 x 128 tokens, checkpoints every
+   25) uninterrupted and with a failure injected at step 30: one restart,
+   final step 60, the loss decreasing, both last losses within 1e-6.
 
 Kernel times are device times: CUDA events around calls queued behind a
 spin kernel, so the host's launch rate does not enter.  Every kernel row
@@ -120,7 +138,9 @@ included: what a caller pays where launches, not the device, set the pace.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3,
-5, 5b, 5c, 6 and 7 on the CPU (6 and 7 on ``reduced`` configs; the join's outer
+5, 5b, 5c, 6, 7 and 8 on the CPU (6 to 8 on ``reduced`` configs, 8 at 4 x
+128 tokens with train_lm's ``--smoke`` as its Supervisor leg, whose loss
+is recorded, not gated; the join's outer
 stream, buffer and tree scaled from ``--keys`` by the same ratios; 5c at
 the benchmarks' ``--smoke`` sizes, its scale leg on ``--keys``) at a
 smaller ``--keys``/``--queries`` and exits non-zero without a result.
@@ -1588,6 +1608,262 @@ def attention_rows(torch, tfa, tda, first, launches):
 
 
 # ---------------------------------------------------------------------------
+# The training path: starcoder2-3b at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_STEPS = 8
+LOSS_RTOL_F32 = 2e-2        # bf16 step vs float32 step, same masters/batch
+GRAD_NORM_RTOL_F32 = 5e-2
+SUPERVISOR_FAIL_AT = 30     # the train_lm leg's injected failure
+
+
+def split_train_step(torch, step_fn, state, batch):
+    """One more train step with the AdamW update timed apart (a device
+    sync on each side of it): (state, gradient seconds, update seconds)."""
+    from repro_torch.train import optimizer as opt_mod
+
+    real, took = opt_mod.adamw_update, {}
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        took["grads"] = time.perf_counter() - t0
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        took["adamw"] = time.perf_counter() - t0 - took["grads"]
+        return out
+
+    opt_mod.adamw_update = timed      # train_step calls it through the module
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+    finally:
+        opt_mod.adamw_update = real
+    return state, took["grads"], took["adamw"]
+
+
+def profile_train_step(torch, step_fn, state, batch):
+    """One more train step under ``torch.profiler``: device seconds of the
+    GEMMs and of everything else, kernel launches, and the device's busy
+    share of the profiled wall time (the profiler's overhead included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gemm = other = 0.0
+    launches = 0
+    top = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = float(evt.self_device_time_total)
+        if us <= 0:
+            continue
+        launches += evt.count
+        top.append((us, evt.key[:80], evt.count))
+        if any(t in evt.key.lower() for t in ("gemm", "gemv", "cutlass",
+                                               "sm90_xmma", "nvjet")):
+            gemm += us
+        else:
+            other += us
+    top.sort(reverse=True)
+    busy = (gemm + other) / 1e6
+    return state, {"wall_seconds": wall, "gemm_seconds": gemm / 1e6,
+                   "other_seconds": other / 1e6, "kernel_launches": launches,
+                   "device_busy_share": busy / wall if busy else None,
+                   "top_kernels": [dict(us=u, name=n, count=c)
+                                   for u, n, c in top[:12]]}
+
+
+def supervisor_leg(args, torch, dev, on_card):
+    """``repro_torch.launch.train_lm`` twice at its full configuration
+    (``--smoke`` on the CPU): uninterrupted, and with an injected failure
+    that the Supervisor answers by restoring the last checkpoint and
+    replaying the pipeline."""
+    from repro_torch.launch import train_lm
+
+    smoke = not on_card
+    fail_at = SUPERVISOR_FAIL_AT if on_card else 4
+    whole = train_lm.run(smoke=smoke, seed=args.seed, torch_device=dev)
+    faulted = train_lm.run(smoke=smoke, seed=args.seed, torch_device=dev,
+                           fail_at=(fail_at,))
+    a, b = whole["losses"][-1], faulted["losses"][-1]
+    out = {"smoke": smoke, "params": whole["params"],
+           "batch": whole["batch"], "seq": whole["seq"],
+           "steps": whole["steps"], "fail_at": fail_at,
+           "seconds": [whole["seconds"], faulted["seconds"]],
+           "tokens_per_s": whole["tokens_per_s"],
+           "first_loss": whole["losses"][0], "last_loss": a,
+           "faulted_last_loss": b, "last_loss_rel_diff": abs(a - b) / abs(a),
+           "restarts": faulted["restarts"],
+           "final_step": faulted["final_step"],
+           "faulted_steps_run": len(faulted["losses"])}
+    checks = [
+        (whole["restarts"] == 0 and faulted["restarts"] == 1,
+         f"supervisor leg: restarts {whole['restarts']}, "
+         f"{faulted['restarts']} (want 0, 1)"),
+        (whole["final_step"] == faulted["final_step"] == whole["steps"],
+         f"supervisor leg: final steps {whole['final_step']}, "
+         f"{faulted['final_step']} (want {whole['steps']})"),
+        (abs(a - b) <= 1e-6 * abs(a),
+         f"supervisor leg: last losses {a} and {b} differ by more than "
+         f"1e-6 relative")]
+    # the smoke's 8 warmup steps move the loss less than the batches do,
+    # so only the full run's decrease is a gate
+    if on_card:
+        checks.append((whole["loss_decreasing"] and faulted["loss_decreasing"],
+                       f"supervisor leg: loss did not decrease "
+                       f"({whole['losses'][0]} -> {a}, faulted -> {b})"))
+    return out, checks
+
+
+def train_phase(args, torch, np, dev, on_card, mods):
+    """Phase 8: starcoder2-3b trained at full width and depth (``reduced``
+    on the CPU) through ``repro_torch.launch.train.build_trainer``, a
+    float32 step beside the bf16 one, the ``pallas`` refusal, and the
+    Supervisor leg.  Returns the phase's kernel launches (all 0)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import Recipe, ShardingCtx
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models.attention import attention
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    t_phase = time.perf_counter()
+    full = get_config(TRAIN_ARCH)
+    cfg = full if on_card else reduced(full)
+    batch_n, seq = (4, 1024) if on_card else (4, 128)
+    recipe = Recipe(remat="block", microbatch=1, attn_impl="blockwise")
+    opt_cfg = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=5,
+                                  total_steps=TRAIN_STEPS,
+                                  moment_dtype=cfg.opt_moment_dtype)
+    zero_counters(mods)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen, dtype=torch.float32, device=dev)
+    sync()
+    t_init = time.perf_counter() - t0
+    numel = sum(x.numel() for _, x in opt_mod.leaves(params))
+    n_model = cfg.param_count()
+    pipe = TokenPipeline(cfg.vocab_size, batch_n, seq, seed=args.seed)
+    to_dev = lambda b: {k: torch.as_tensor(v, device=dev)
+                        for k, v in b.items()}
+
+    # the float32 reading: step 0's gradients with a float32 compute copy
+    # (the masters themselves) from the same masters and batch
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    loss32, g32 = ts_mod._grads_fn(params, to_dev(pipe.batch_for_step(0)),
+                                   cfg32, ShardingCtx(None, recipe))
+    gn32 = float(opt_mod.global_norm(g32))
+    loss32 = float(loss32)
+    t_f32 = time.perf_counter() - t0
+    del g32
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    state = {"params": params,
+             "opt_state": ts_mod.init_opt_state(params, cfg, recipe,
+                                                opt_cfg)}
+    del params
+    step_fn = build_trainer(cfg, recipe, opt_cfg, device=dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    seconds, losses, norms, lrs = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, pipe.batch_for_step(i))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        sync()
+        seconds.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    prof = None
+    if on_card:      # two more steps, past the 8 counted ones
+        state, g_s, a_s = split_train_step(torch, step_fn, state,
+                                           pipe.batch_for_step(TRAIN_STEPS))
+        state, prof = profile_train_step(
+            torch, step_fn, state, pipe.batch_for_step(TRAIN_STEPS + 1))
+        prof.update(split_step={"grads_seconds": g_s, "adamw_seconds": a_s})
+    launches = read_counters(mods)
+
+    # neither attention kernel has a backward: the pallas route refuses
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    q, k, v = (torch.randn(1, 512, cfg.num_heads, cfg.head_dim,
+                           generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    q.requires_grad_()
+    try:
+        attention(q, k, v, impl="pallas")
+        refused = False
+    except ValueError as e:
+        refused = "no backward kernel" in str(e)
+    del state, q, k, v
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    sup, sup_checks = supervisor_leg(args, torch, dev, on_card)
+    tokens = batch_n * seq
+    med = float(np.median(seconds[1:]))
+    bound_s = 8 * n_model * tokens / BF16_FLOPS_PER_S   # remat: fwd twice
+    out = {"phase": "train", "arch": cfg.name, "params": n_model,
+           "param_numel": numel, "batch": batch_n, "seq": seq,
+           "steps": TRAIN_STEPS,
+           "recipe": {"remat": recipe.remat, "microbatch": recipe.microbatch,
+                      "attn_impl": recipe.attn_impl,
+                      "grad_dtype": recipe.grad_dtype},
+           "moment_dtype": opt_cfg.moment_dtype, "init_seconds": t_init,
+           "step_seconds": seconds, "first_step_seconds": seconds[0],
+           "median_step_seconds": med, "tokens_per_s": tokens / med,
+           "mfu": 6 * n_model * tokens / (med * BF16_FLOPS_PER_S),
+           "bound_step_seconds": bound_s, "peak_gb": peak_gb,
+           "losses": losses, "grad_norms": norms, "lrs": lrs,
+           "float32_check": {
+               "loss_bf16": losses[0], "loss_f32": loss32,
+               "loss_rel_diff": abs(losses[0] - loss32) / abs(loss32),
+               "grad_norm_bf16": norms[0], "grad_norm_f32": gn32,
+               "grad_norm_rel_diff": abs(norms[0] - gn32) / gn32,
+               "seconds": t_f32},
+           "profiled_step": prof, "launches": launches,
+           "pallas_grad_refused": refused, "supervisor": sup,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)                      # the phase's numbers before its checks
+    check(np.isfinite(losses + norms + [loss32, gn32]).all(),
+          f"train: non-finite loss or grad norm: {losses}, {norms}")
+    check(losses[-1] < losses[0], f"train: the loss did not decrease "
+                                  f"({losses[0]} -> {losses[-1]})")
+    fc = out["float32_check"]
+    check(fc["loss_rel_diff"] <= LOSS_RTOL_F32,
+          f"train: bf16 loss {losses[0]} vs float32 {loss32}")
+    check(fc["grad_norm_rel_diff"] <= GRAD_NORM_RTOL_F32,
+          f"train: bf16 grad norm {norms[0]} vs float32 {gn32}")
+    check(not any(launches.values()),
+          f"train: kernels launched on the train path: {launches}")
+    check(refused, "train: attention(impl='pallas') took inputs that "
+                   "require grad")
+    for cond, what in sup_checks:
+        check(cond, what)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The join path: the paper's §VII-A join setup at the main path's 1/10 cut
 # ---------------------------------------------------------------------------
 
@@ -2488,6 +2764,13 @@ def main(argv=None) -> int:
                        path="families/zamba2-2.7b", head_dim=80)
         del d80_first
 
+    # ---- 8. the training path: starcoder2-3b at full width ---------------
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    train_launches = train_phase(args, torch, np, torch.device(args.device),
+                                 on_card, mods)
+
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; no result without a GPU",
               file=sys.stderr)
@@ -2496,6 +2779,7 @@ def main(argv=None) -> int:
         row["join_launches"] = join_launches[row["name"]]
         row["online_launches"] = online_launches[row["name"]]
         row["families_launches"] = family_launches[row["name"]]
+        row["train_launches"] = train_launches[row["name"]]
     emit({"total_seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""Data substrate: synthetic SOSD-style datasets and workload mixtures."""
-from repro_torch.data import datasets, workloads
+"""Data substrate: synthetic SOSD-style datasets, workload mixtures and the
+LM token pipeline."""
+from repro_torch.data import datasets, pipeline, workloads
 
-__all__ = ["datasets", "workloads"]
+__all__ = ["datasets", "pipeline", "workloads"]

@@ -23,7 +23,10 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "check", "check_aligned", "build_seconds", "SOURCES"]
+import torch
+
+__all__ = ["library", "check", "check_aligned", "refuse_grad",
+           "build_seconds", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -154,3 +157,16 @@ def check_aligned(kernel: str, name: str, t) -> None:
             f"that are multiples of 16 bytes for the kernel's vector loads, "
             f"got base % 16 = {t.data_ptr() % 16}, strides {t.stride()} of "
             f"{size}-byte elements")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise, on every device, when autograd would need ``kernel``'s
+    backward: grad mode is on and an input requires grad.  No attention
+    kernel has a backward, in this package or in the JAX package (whose
+    gradient through its Pallas flash kernel fails in the transpose), so
+    training takes ``attn_impl="blockwise"``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{kernel} has no backward kernel (neither has the JAX "
+            f"package's Pallas kernel); train with attn_impl='blockwise', "
+            f"or call it under torch.no_grad()")

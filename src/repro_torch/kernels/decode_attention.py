@@ -30,7 +30,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import check_aligned
+from repro_torch.kernels._build import check_aligned, refuse_grad
 from repro_torch.kernels.ref import decode_attention_ref
 
 __all__ = ["decode_attention", "decode_attention_ref", "decode_splits",
@@ -74,7 +74,8 @@ def _sm_count(index: int) -> int:
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
-    """q: (B,1,H,D); caches: (B,S,Hk,D); lengths: (B,). Returns (B,1,H,D)."""
+    """q: (B,1,H,D); caches: (B,S,Hk,D); lengths: (B,). Returns (B,1,H,D).
+    Forward only: inputs that require grad under grad mode raise."""
     b, one, h, d = q.shape
     if one != 1 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape \
             or k_cache.shape[0] != b or k_cache.shape[3] != d \
@@ -84,6 +85,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
             f"multiple of Hk and lengths (B,) expected, got {tuple(q.shape)},"
             f" {tuple(k_cache.shape)}, {tuple(v_cache.shape)}, "
             f"{tuple(lengths.shape)}")
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":

@@ -16,6 +16,9 @@ Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors or raises; nothing falls back.  The JAX decode step
 always uses the plain einsum version; the port routes decode through the
 kernel under ``"pallas"`` because that kernel computes the same function.
+Neither kernel has a backward: a wrapper given inputs that require grad
+raises, as JAX's gradient through its Pallas flash kernel fails, so
+training takes ``"blockwise"`` (the ``Recipe`` default).
 
 Scores accumulate in float32 from float32 copies of the operands, which is
 what ``preferred_element_type=float32`` gives for bfloat16 inputs.

@@ -1,14 +1,14 @@
-"""Mamba2 (SSD) blocks and the Zamba2 hybrid's decode step (a Mamba2
-backbone with a SHARED attention+MLP block applied every
-``shared_attn_every`` layers).
+"""Mamba2 (SSD) blocks and the Zamba2 hybrid (a Mamba2 backbone with a
+SHARED attention+MLP block applied every ``shared_attn_every`` layers):
+training logits and loss, and the decode step.
 
-Mirrors ``repro/models/mamba2.py`` for serving.  The selective state space
+Mirrors ``repro/models/mamba2.py``.  The selective state space
 runs in chunked form: scalar-per-head decays in log space, intra-chunk
 pairs as dense (C x C) products with the positive exponents masked before
 ``exp``, the inter-chunk state carried by a Python loop over chunks where
 JAX scans.  State is (B, H, head_dim, N).  The hybrid's prefill is
-``model.hybrid_prefill``; ``hybrid_logits``/``hybrid_loss`` (training) are
-not ported yet.
+``model.hybrid_prefill``.  The (G, K) layer-stacked Mamba2 leaves are read
+as ``leaf[g][k]``, so a leaf may also be nested per-layer sequences.
 """
 from __future__ import annotations
 
@@ -19,10 +19,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models.transformer import (_attn_out, _mlp, _project_qkv,
-                                            write_kv)
+                                            _remat, make_block_fn, write_kv)
 
-__all__ = ["mamba2_block", "mamba2_block_decode", "hybrid_decode",
-           "init_hybrid_state"]
+__all__ = ["mamba2_block", "mamba2_block_decode", "hybrid_logits",
+           "hybrid_loss", "hybrid_decode", "init_hybrid_state"]
 
 
 def _softplus(x):
@@ -141,6 +141,43 @@ def mamba2_block_decode(h, blk, cfg, ctx, conv_prev, ssm_prev):
 # ---------------------------------------------------------------------------
 # Zamba2 hybrid model
 # ---------------------------------------------------------------------------
+
+def hybrid_logits(params, cfg: ModelConfig, batch, ctx, remat: str = "none"):
+    """(B, T, V) float32 logits of ``batch["tokens"]`` (B, T).  With any
+    remat but "none" each group (K Mamba2 blocks and the shared block) is
+    one checkpoint, as JAX checkpoints its group."""
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    h = layers.take_embedding(params["embed"], tokens, ctx)
+    h = h.to(torch.bfloat16 if cfg.dtype == "bfloat16" else h.dtype)
+    h = ctx.constrain(h, "batch", "seq", "act_embed")
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, t)
+    shared_block = make_block_fn(cfg, ctx, positions)
+    mamba = params["mamba"]
+
+    def group(hh, gblks, shared):
+        for blk in gblks:
+            hh, _ = mamba2_block(hh, blk, cfg, ctx)
+        (hh, _), _ = shared_block((hh, 0.0), shared)
+        return hh
+
+    grp = _remat(group) if remat != "none" else group
+    groups, k_inner = len(mamba["ln"]), len(mamba["ln"][0])
+    for gi in range(groups):
+        h = grp(h, [{n: v[gi][ki] for n, v in mamba.items()}
+                    for ki in range(k_inner)], params["shared"])
+    h = layers.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return layers.matmul_f32(h, params["lm_head"])
+
+
+def hybrid_loss(params, cfg, batch, ctx):
+    """Next-token CE of ``tokens`` (B, T+1), mean over tokens."""
+    tokens = batch["tokens"]
+    logits = hybrid_logits(params, cfg, dict(batch, tokens=tokens[:, :-1]),
+                           ctx, remat=ctx.recipe.remat)
+    return layers.softmax_xent(logits, tokens[:, 1:], ctx)
+
 
 def init_hybrid_state(cfg: ModelConfig, batch_size: int, max_seq: int,
                       dtype=torch.bfloat16):

@@ -1,10 +1,9 @@
-"""Unified model API for the serving path: family dispatch for prefill and
+"""Unified model API: family dispatch for the training loss, prefill and
 decode, the prefill variants of the recurrent families (last logits +
 running state), and the input and decode-cache shapes.
 
 Mirrors ``repro/models/model.py``; shapes come back as ``meta`` tensors
-where JAX returns ``ShapeDtypeStruct``s.  ``loss_fn`` (training) is not
-ported yet.
+where JAX returns ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -16,13 +15,22 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import layers, mamba2, rwkv, transformer
 
-__all__ = ["prefill_fn", "decode_fn", "rwkv_prefill", "hybrid_prefill",
+__all__ = ["loss_fn", "prefill_fn", "decode_fn", "rwkv_prefill", "hybrid_prefill",
            "input_specs", "input_dims", "cache_specs", "cache_dims"]
 
 
 # ---------------------------------------------------------------------------
 # Forward dispatch
 # ---------------------------------------------------------------------------
+
+def loss_fn(params, cfg: ModelConfig, batch, ctx: ShardingCtx):
+    """Scalar float32 training loss of ``batch`` (tokens (B, S+1))."""
+    if cfg.family == "rwkv":
+        return rwkv.rwkv_loss(params, cfg, batch, ctx)
+    if cfg.family == "hybrid":
+        return mamba2.hybrid_loss(params, cfg, batch, ctx)
+    return transformer.transformer_loss(params, cfg, batch, ctx)
+
 
 def prefill_fn(params, cfg: ModelConfig, batch, ctx: ShardingCtx):
     if cfg.family == "rwkv":

@@ -1,5 +1,6 @@
 """RWKV6 (Finch): token shift, data-dependent decay via LoRA, matrix-valued
-state, for serving: the chunked prefill block and the O(1) decode step.
+state: the chunked full-sequence block (prefill and training), the O(1)
+decode step, and the training logits and loss.
 
 Mirrors ``repro/models/rwkv.py``.  Recurrence (per head, head_dim hd):
 
@@ -14,7 +15,8 @@ take ``exp(cum_{t-1} - cum_s)`` for s < t directly (the masked pairwise
 decay of ``mamba2._ssd_chunked``), so the function is JAX's wherever JAX's
 is finite and stays finite where JAX's is not.  The pairwise tensor is
 (B, c, c, H, hd) float32 a chunk (671 MB at rwkv6-3b's batch 4, chunk 128).
-``rwkv_logits``/``rwkv_loss`` (training) are not ported yet.
+Masked pairs enter ``exp`` as -inf and leave as 0, so their derivative is
+0 too: no inf meets a zero cotangent in the backward.
 """
 from __future__ import annotations
 
@@ -23,9 +25,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.models.transformer import scan_blocks
 
-__all__ = ["rwkv_block", "rwkv_block_decode", "rwkv_decode", "rwkv_embed",
-           "init_rwkv_state"]
+__all__ = ["rwkv_block", "rwkv_block_decode", "rwkv_logits", "rwkv_loss",
+           "rwkv_decode", "rwkv_embed", "init_rwkv_state"]
 
 
 def _mm(x, w):
@@ -76,7 +79,7 @@ def _wkv_chunked(r, k, v, logw, u, state, chunk: int):
         mask = tri[:c, :c, None, None]
         pair = torch.exp(torch.where(mask, expo, float("-inf")))
         del expo
-        att = pair.mul_(rc[:, :, None]).mul_(kc[:, None]).sum(-1)  # (B,t,s,H)
+        att = (pair * rc[:, :, None] * kc[:, None]).sum(-1)     # (B,t,s,H)
         del pair
         o = o + torch.einsum("btsh,bshe->bthe", att, vc)
         # diagonal (bonus u)
@@ -162,13 +165,30 @@ def rwkv_block_decode(h, blk, cfg, ctx, tm_prev, cm_prev, att_state):
 
 
 # ---------------------------------------------------------------------------
-# Full model (serving)
+# Full model
 # ---------------------------------------------------------------------------
 
 def rwkv_embed(params, cfg, tokens, ctx):
     h = layers.take_embedding(params["embed"], tokens, ctx)
     h = h.to(torch.bfloat16 if cfg.dtype == "bfloat16" else h.dtype)
     return ctx.constrain(h, "batch", "seq", "act_embed")
+
+
+def rwkv_logits(params, cfg: ModelConfig, batch, ctx, remat: str = "none"):
+    """(B, T, V) float32 logits of ``batch["tokens"]`` (B, T)."""
+    h = rwkv_embed(params, cfg, batch["tokens"], ctx)
+    h, _ = scan_blocks(lambda hh, blk: (rwkv_block(hh, blk, cfg, ctx)[0], None),
+                       h, params["blocks"], remat)
+    h = layers.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return layers.matmul_f32(h, params["lm_head"])
+
+
+def rwkv_loss(params, cfg, batch, ctx):
+    """Next-token CE of ``tokens`` (B, T+1), mean over tokens."""
+    tokens = batch["tokens"]
+    logits = rwkv_logits(params, cfg, dict(batch, tokens=tokens[:, :-1]), ctx,
+                         remat=ctx.recipe.remat)
+    return layers.softmax_xent(logits, tokens[:, 1:], ctx)
 
 
 def init_rwkv_state(cfg: ModelConfig, batch_size: int,

@@ -1,31 +1,90 @@
 """Decoder-only transformer forward passes (dense / MoE / VLM / audio).
 
-Mirrors ``repro/models/transformer.py`` for inference: embedding (token,
-VLM merge, summed audio codebooks), the block function (dense MLP or MoE
-with shared experts), full-sequence logits, prefill (last-token logits +
-per-layer KV) and one decode step against a static KV cache, bfloat16 or
-int8 with per-(token, head) scales.  Depth is a Python loop over views of
-the layer-stacked ``(L, ...)`` tensors where JAX scans; there is no remat
-on this inference-only path.  The decode step writes the new token's K/V
-(and scales) into the cache in place (JAX returns a new cache).
+Mirrors ``repro/models/transformer.py``: embedding (token, VLM merge,
+summed audio codebooks), the block function (dense MLP or MoE with shared
+experts), full-sequence logits and the training loss, prefill (last-token
+logits + per-layer KV) and one decode step against a static KV cache,
+bfloat16 or int8 with per-(token, head) scales.  Depth is
+:func:`scan_blocks`, a Python loop over the layers where JAX scans, with
+JAX's remat policies as ``torch.utils.checkpoint``:
+
+  * "none"   — store everything (inference / tiny models)
+  * "block"  — checkpoint each layer
+  * "nested" — two-level sqrt(L) grouping: an outer checkpoint a group of
+               K layers keeps only group boundaries, and an inner one a
+               layer keeps the group's recompute to K layer boundaries.
+
+A layer-stacked leaf is an ``(L, ...)`` tensor, or a sequence of L
+per-layer tensors (the train step's per-layer gradient leaves).  The
+decode step writes the new token's K/V (and scales) into the cache in
+place (JAX returns a new cache).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, moe
 
-__all__ = ["embed_inputs", "make_block_fn", "head_logits",
-           "transformer_logits", "transformer_prefill", "transformer_decode",
-           "init_kv_cache", "write_kv"]
+__all__ = ["embed_inputs", "make_block_fn", "head_logits", "scan_blocks",
+           "transformer_logits", "transformer_loss", "transformer_prefill",
+           "transformer_decode", "init_kv_cache", "write_kv"]
 
 
 def _layer(params, l: int) -> Dict[str, torch.Tensor]:
     return {k: v[l] for k, v in params["blocks"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Depth loop with remat
+# ---------------------------------------------------------------------------
+
+def _nested_factors(num_layers: int) -> Tuple[int, int]:
+    """Largest divisor of L that is <= sqrt(L) (outer group count)."""
+    g = max(d for d in range(1, int(math.isqrt(num_layers)) + 1)
+            if num_layers % d == 0)
+    return g, num_layers // g
+
+
+def _remat(fn):
+    # the forward draws no random numbers, so no RNG state is kept
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 preserve_rng_state=False)
+
+
+def _run(body, carry, blks):
+    ys = []
+    for blk in blks:
+        carry, y = body(carry, blk)
+        ys.append(y)
+    return carry, ys
+
+
+def scan_blocks(body, carry, stacked, remat: str = "block"):
+    """Run ``body(carry, blk) -> (carry, y)`` over the layers of
+    ``stacked`` (a dict of layer-stacked leaves); returns the last carry
+    and the list of per-layer ``y``."""
+    num_layers = len(next(iter(stacked.values())))
+    blks = [{k: v[l] for k, v in stacked.items()} for l in range(num_layers)]
+    if remat == "none":
+        return _run(body, carry, blks)
+    if remat == "block":
+        return _run(_remat(body), carry, blks)
+    if remat == "nested":
+        g, k = _nested_factors(num_layers)
+        inner = _remat(body)
+        outer = _remat(lambda c, group: _run(inner, c, group))
+        ys = []
+        for gi in range(g):
+            carry, y = outer(carry, blks[gi * k:(gi + 1) * k])
+            ys += y
+        return carry, ys
+    raise ValueError(f"unknown remat mode {remat!r}")
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, Any], ctx):
@@ -128,23 +187,18 @@ def _positions(batch):
                         device=tokens.device)[None].expand(b, s)
 
 
-def _forward(params, cfg: ModelConfig, batch, ctx, return_kv: bool):
-    """Final-normed hidden states and, with ``return_kv``, the stacked
-    (L, B, S, Hk, Dh) K and V of every layer."""
+def _forward(params, cfg: ModelConfig, batch, ctx, return_kv: bool,
+             remat: str = "none"):
+    """Final-normed hidden states, the summed auxiliary loss and, with
+    ``return_kv``, the stacked (L, B, S, Hk, Dh) K and V of every layer."""
     h = embed_inputs(params, cfg, batch, ctx)
     block = make_block_fn(cfg, ctx, _positions(batch),
                           batch.get("positions_3d"), return_kv=return_kv)
+    (h, aux), ys = scan_blocks(block, (h, 0.0), params["blocks"], remat)
     kv = None
-    carry = (h, 0.0)
-    for l in range(cfg.num_layers):
-        carry, ys = block(carry, _layer(params, l))
-        if return_kv:
-            if kv is None:
-                kv = tuple(torch.empty((cfg.num_layers,) + y.shape,
-                                       dtype=y.dtype, device=y.device)
-                           for y in ys)
-            kv[0][l], kv[1][l] = ys
-    h, aux = carry
+    if return_kv:
+        kv = tuple(torch.stack([y[i] for y in ys]) for i in range(2))
+    del ys
     return layers.rms_norm(h, params["final_ln"], cfg.norm_eps), aux, kv
 
 
@@ -158,11 +212,22 @@ def head_logits(params, cfg: ModelConfig, h):
 
 
 def transformer_logits(params, cfg: ModelConfig, batch, ctx,
-                       return_kv: bool = False):
+                       remat: str = "none", return_kv: bool = False):
     """(B, S, V) float32 logits ((B, S, C, V) for audio), the auxiliary
     loss (0 for dense) and, with ``return_kv``, the stacked per-layer K/V."""
-    h, aux, kv = _forward(params, cfg, batch, ctx, return_kv)
+    h, aux, kv = _forward(params, cfg, batch, ctx, return_kv, remat)
     return head_logits(params, cfg, h), aux, kv
+
+
+def transformer_loss(params, cfg: ModelConfig, batch, ctx) -> torch.Tensor:
+    """Next-token CE (mean over tokens); MoE adds 0.01 x the aux balance
+    loss.  ``tokens`` (B, S+1) ((B, S+1, C) for audio); a VLM batch's
+    ``positions_3d`` (3, B, S) and ``vision_embeds`` pass through."""
+    tokens = batch["tokens"]
+    batch_in = dict(batch, tokens=tokens[:, :-1])
+    logits, aux, _ = transformer_logits(params, cfg, batch_in, ctx,
+                                        remat=ctx.recipe.remat)
+    return layers.softmax_xent(logits, tokens[:, 1:], ctx) + 0.01 * aux
 
 
 def transformer_prefill(params, cfg: ModelConfig, batch, ctx):

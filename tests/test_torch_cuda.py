@@ -871,3 +871,112 @@ def test_sharding_solve_on_the_card_matches_host_executor(dev):
     assert got.io_per_query == pytest.approx(want.io_per_query, rel=1e-5)
     np.testing.assert_allclose(got.boundary_totals, want.boundary_totals,
                                rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card: the bf16 products' backward, a train step against
+# the CPU, and the attention kernels' refusal of gradients
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_bf16_products_have_a_backward(dev, batched):
+    """``matmul_f32``/``bmm_f32`` of bfloat16 card tensors: the forward is
+    cuBLAS's float32 accumulator, and the gradients come back in bfloat16
+    within 2e-2 of their max-abs of float32 autograd on the same values."""
+    from repro_torch.models.layers import bmm_f32, matmul_f32
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = ((4, 96, 160), (4, 160, 72)) if batched else ((2, 48, 160),
+                                                           (160, 72))
+    a, b = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+            .requires_grad_() for s in shapes)
+    fn = bmm_f32 if batched else matmul_f32
+    out = fn(a, b)
+    assert out.dtype == torch.float32
+    cot = torch.randn(out.shape, generator=g, device=dev)
+    out.backward(cot)
+    a32, b32 = (x.detach().float().requires_grad_() for x in (a, b))
+    ref = torch.matmul(a32, b32)
+    ref.backward(cot)
+    assert float((out - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    for x, x32 in ((a, a32), (b, b32)):
+        assert x.grad.dtype == torch.bfloat16
+        err = (x.grad.float() - x32.grad).abs().max()
+        assert float(err) <= 2e-2 * float(x32.grad.abs().max())
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("starcoder2-3b", "float32"), ("starcoder2-3b", "bfloat16"),
+    ("qwen2-moe-a2.7b", "float32"), ("rwkv6-3b", "float32"),
+    ("zamba2-2.7b", "float32")])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch, dtype):
+    """One reduced train step on the card and on the CPU from the same
+    weights and batch: loss and grad norm within 1e-4 (float32) or 2e-2
+    (bfloat16 compute), and the parameters.  Adam's first step moves an
+    entry by about lr times the sign of its gradient, so an entry whose
+    gradient is rounding noise (a key bias's is 0 in exact arithmetic;
+    zamba2's float32 rounding grows through its blocks) may move either
+    way on either device: at most 1% of a leaf's entries may lie further
+    than the tolerance times the leaf's max-abs, none further than that
+    plus two opposite updates.  Every leaf initialised to a constant
+    (norms, biases, mixes) is moved by 0.1 N(0, 1), as the JAX parity
+    tests do, so that no leaf is only its update."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import Recipe
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype=dtype)
+    recipe = Recipe(remat="block")
+    opt_cfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    step = ts_mod.make_train_step(cfg, recipe, None, opt_cfg)
+    gen = torch.Generator().manual_seed(0)
+    base = opt_mod.map_tree(
+        lambda x: x + 0.1 * torch.randn(x.shape, generator=gen)
+        if x.numel() > 1 and bool((x == x.flatten()[0]).all()) else x,
+        init_params(cfg, gen, device="cpu"))
+    batch = TokenPipeline(cfg.vocab_size, 4, 64, seed=1).batch_for_step(0)
+    out = {}
+    for d in ("cpu", dev):
+        # a copy on each device: the step updates its params in place
+        params = opt_mod.map_tree(lambda x: x.to(d, copy=True), base)
+        state = ts_mod.init_opt_state(params, cfg, recipe, opt_cfg)
+        p, _, m = step(params, state, {k: torch.as_tensor(v, device=d)
+                                       for k, v in batch.items()})
+        out[str(d)] = (p, m)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    (pc, mc), (pg, mg) = out["cpu"], out[str(dev)]
+    for name in ("loss", "grad_norm"):
+        assert abs(float(mg[name]) - float(mc[name])) <= tol * abs(
+            float(mc[name])), name
+    gl = dict(opt_mod.leaves(pg))
+    for path, x in opt_mod.leaves(pc):
+        y = gl[path].cpu()
+        assert y.dtype == x.dtype
+        d, near = (y - x).abs(), tol * float(x.abs().max())
+        assert float((d > near).float().mean()) <= 1e-2, path
+        assert float(d.max()) <= near + 2 * opt_cfg.lr, path
+
+
+def test_attention_kernels_refuse_gradients_on_the_card(dev):
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attention
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(1, 512, 4, 64, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    q.requires_grad_()
+    with pytest.raises(ValueError, match="no backward kernel"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        attention(q, k, v, impl="pallas")
+    lengths = torch.full((1,), 100, device=dev)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        ops.decode_attention(q[:, :1], k, v, lengths)
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+        ops.decode_attention(q[:, :1], k, v, lengths)

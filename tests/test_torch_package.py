@@ -1,7 +1,8 @@
 """Packaging guarantees of the port.
 
-* Importing every ``repro_torch`` module — the CAM path and the serving
-  path alike — (and reading ``chip_smoke.py``'s imports) pulls in neither
+* Importing every ``repro_torch`` module — the CAM path, the serving path
+  and the training path alike — (and reading ``chip_smoke.py``'s
+  imports) pulls in neither
   ``jax`` nor the ``repro`` package — checked in a fresh interpreter.
 * Entry points default to the card; without one a default-device session
   raises instead of running on the CPU, and a CPU session must be asked
@@ -39,7 +40,10 @@ def test_port_imports_without_jax_or_repro():
                  "configs.cam_paper", "serving.session", "serving.sketch",
                  "write.session", "sharding.session",
                  "launch.bench_serving_drift", "launch.bench_sharding",
-                 "launch.bench_write_path"):
+                 "launch.bench_write_path", "train.optimizer",
+                 "train.train_step", "data.pipeline",
+                 "distributed.checkpoint", "distributed.fault_tolerance",
+                 "launch.train", "launch.train_lm"):
         assert "repro_torch." + name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -125,3 +129,26 @@ def test_serve_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         plan_kv_pool(mix, hbm_budget_bytes=2**30, weight_bytes=0.0)
     assert ServeEngine(cfg, {}, device="cpu").device.type == "cpu"
+
+
+def test_train_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    import inspect
+
+    from repro_torch.launch import train, train_lm
+
+    assert inspect.signature(train.build_trainer).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(train_lm.run).parameters[
+        "torch_device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_lm.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.build_trainer(None, None, None)
+    assert not list(tmp_path.iterdir())
+    res = train.main(["--reduced", "--steps", "2", "--batch", "2", "--seq",
+                      "16", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert res["final_step"] == 2 and len(res["losses"]) == 2
