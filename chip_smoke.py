@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) through CAM's main path,
 CAM's join layer, CAM's online layers (serving sketch, sharded fleet, write
-path), the LM serving path of every model family and LM training on one
-NVIDIA GPU, and hold its six CUDA kernels against their plain versions.
+path), the LM serving path of every model family, LM training and the
+multi-device training path on one NVIDIA GPU, and hold its six CUDA
+kernels against their plain versions.
 
 Run from the root of a checkout::
 
@@ -129,7 +130,25 @@ prints its last line):
    the Supervisor leg: ``repro_torch.launch.train_lm`` at its full
    configuration (8 x 512, 60 steps of 8 x 128 tokens, checkpoints every
    25) uninterrupted and with a failure injected at step 30: one restart,
-   final step 60, the loss decreasing, both last losses within 1e-6.
+   final step 60, the loss decreasing, both last losses within 1e-6;
+9. the distributed path, after phase 8's state is freed, on a one-rank
+   NCCL process group (a file store): phase 8's model, masters, recipe
+   and batches through ``repro_torch.launch.cells.build_cell`` on a
+   (data 1, model 1) ``DeviceMesh`` (DTensor params), 3 steps against 3
+   mesh-less steps (losses and grad norms within 1e-5), seconds a step,
+   peak and a profiled step; the pod-compressed step
+   (``compress_pod_grads`` on (pod 1, data 1, model 1)) at full depth, 3
+   steps, its compression timed apart (its share from step 1 on) and step
+   0's int8 error within scale/2 + 1e-6 on every leaf; train_lm's
+   Supervisor leg on the mesh (one restart, last losses within 1e-6);
+   ``launch.dryrun.run_cell`` in subprocesses, on the CPU beside the
+   Supervisor leg: step 1's cell on a fake one-rank world (its peak
+   beside the measured one) and the two
+   production cells (starcoder2-3b ``decode_32k``, qwen2-moe-a2.7b
+   ``train_4k``) on the fake 256-rank (32, 8) mesh; the analytic H100
+   bound of step 1's cell and the whole H100 roofline table (a
+   ``distributed`` and a ``distributed_roofline_h100`` line).  No kernel
+   launches (all six counters 0).
 
 Kernel times are device times: CUDA events around calls queued behind a
 spin kernel, so the host's launch rate does not enter.  Every kernel row
@@ -138,7 +157,7 @@ included: what a caller pays where launches, not the device, set the pace.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3,
-5, 5b, 5c, 6, 7 and 8 on the CPU (6 to 8 on ``reduced`` configs, 8 at 4 x
+5, 5b, 5c, 6, 7, 8 and 9 (a gloo world, no dry runs) on the CPU (6 to 8 on ``reduced`` configs, 8 at 4 x
 128 tokens with train_lm's ``--smoke`` as its Supervisor leg, whose loss
 is recorded, not gated; the join's outer
 stream, buffer and tree scaled from ``--keys`` by the same ratios; 5c at
@@ -1864,6 +1883,329 @@ def train_phase(args, torch, np, dev, on_card, mods):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the multi-device layer on a one-rank mesh of the card
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_RTOL = 1e-5           # mesh step vs mesh-less step, same masters/batch
+SUPERVISOR_MESH_RTOL = 1e-6
+#: The two representative production cells of the JAX dry-run tests.
+DRYRUN_CELLS = (("starcoder2-3b", "decode_32k"), ("qwen2-moe-a2.7b", "train_4k"))
+
+
+def dryrun_subprocess(cells):
+    """Start ``launch.dryrun.run_cell`` on ``cells`` in a subprocess of its
+    own (a fake process group, FakeTensorMode, the CPU only); returns the
+    Popen, whose stdout's last line is the records as JSON."""
+    code = (
+        "import json, sys\n"
+        "from repro_torch.configs.base import ShapeSpec\n"
+        "from repro_torch.launch.dryrun import run_cell\n"
+        "out = []\n"
+        f"for kw in {cells!r}:\n"
+        "    if isinstance(kw.get('shape_name'), dict):\n"
+        "        kw['shape_name'] = ShapeSpec(**kw['shape_name'])\n"
+        "    r = run_cell(verbose=False, **kw)\n"
+        "    r.pop('trace', None)\n"
+        "    out.append(r)\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(ROOT))
+
+
+def collect_dryrun(proc, timeout: float):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"distributed: dry run did not end in {timeout} s")
+    check(proc.returncode == 0,
+          f"distributed: dry run exited {proc.returncode}: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def run_steps(torch, step_fn, params, opt_state, batches, sync):
+    """Steps over ``batches``: (losses, grad norms, seconds a step)."""
+    losses, norms, seconds = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, dict(b))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        sync()
+        seconds.append(time.perf_counter() - t0)
+    return params, opt_state, losses, norms, seconds
+
+
+def distributed_phase(args, torch, np, dev, on_card, mods):
+    """Phase 9: the distributed path of ``repro_torch`` on a one-rank
+    mesh (NCCL on the card, gloo on the CPU): starcoder2-3b trained through
+    ``launch.cells.build_cell`` on a (data 1, model 1) mesh against the
+    mesh-less step, the pod-compressed step on (pod 1, data 1, model 1),
+    the Supervisor restarting on the mesh, dry runs of this cell and of
+    two production cells, and the H100 roofline.  Returns the phase's
+    kernel launches (all 0)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.sharding import Recipe
+    from repro_torch.launch import train_lm
+    from repro_torch.launch.analytic import cell_cost
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import H100
+    from repro_torch.launch.roofline import roofline_table
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    t_phase = time.perf_counter()
+    full = get_config(TRAIN_ARCH)
+    cfg = full if on_card else reduced(full)
+    batch_n, seq = (4, 1024) if on_card else (4, 128)
+    shape = ShapeSpec(f"train_{batch_n}x{seq}", "train", seq, batch_n)
+    recipe = Recipe(remat="block", microbatch=1, attn_impl="blockwise")
+    opt_cfg = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=5,
+                                  total_steps=TRAIN_STEPS,
+                                  moment_dtype=cfg.opt_moment_dtype)
+    zero_counters(mods)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    store = tempfile.NamedTemporaryFile(prefix="chip_smoke_pg_", delete=False)
+    store.close()
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"file://{store.name}", rank=0,
+                            world_size=1)
+    dry_self = dry_prod = None
+    try:
+        dtype_dev = "cuda" if on_card else "cpu"
+        mesh = init_device_mesh(dtype_dev, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        pipe = TokenPipeline(cfg.vocab_size, batch_n, seq, seed=args.seed)
+        batches = [{k: torch.as_tensor(v, device=dev)
+                    for k, v in pipe.batch_for_step(i).items()}
+                   for i in range(DIST_STEPS + 1)]
+
+        # -- 1. the mesh-less step, then the same through build_cell --------
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), dtype=torch.float32, device=dev)
+        plain_step = ts_mod.make_train_step(cfg, recipe, None, opt_cfg)
+        state = ts_mod.init_opt_state(params, cfg, recipe, opt_cfg)
+        params, state, l0, n0, s0 = run_steps(torch, plain_step, params,
+                                              state, batches[:DIST_STEPS],
+                                              sync)
+        del params, state
+        free()
+        fn, make_args = build_cell(cfg, shape, mesh, recipe, device=dev,
+                                   opt_cfg=opt_cfg)
+        params, state, _ = make_args(fake=False, seed=args.seed)
+        placements = sorted({str(p.placements) for _, p in
+                             opt_mod.leaves(params)})
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        params, state, l1, n1, s1 = run_steps(torch, fn, params, state,
+                                              batches[:DIST_STEPS], sync)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        prof = None
+        if on_card:
+            prof = profile_mesh_step(torch, fn, params, state,
+                                     batches[DIST_STEPS])
+        del params, state
+        free()
+        gap = [max(abs(a - b) / abs(b), abs(c - d) / abs(d))
+               for a, b, c, d in zip(l1, l0, n1, n0)]
+        step1 = {"mesh": [1, 1], "placements": placements,
+                 "losses": l1, "grad_norms": n1,
+                 "meshless_losses": l0, "meshless_grad_norms": n0,
+                 "max_rel_gap": max(gap),
+                 "step_seconds": s1, "meshless_step_seconds": s0,
+                 "median_step_seconds": float(np.median(s1[1:])),
+                 "meshless_median_step_seconds": float(np.median(s0[1:])),
+                 "peak_gb": peak_gb, "profiled_step": prof}
+
+        # -- 2. the pod-compressed step -------------------------------------
+        pod_mesh = init_device_mesh(dtype_dev, (1, 1, 1),
+                                    mesh_dim_names=("pod", "data", "model"))
+        crecipe = dataclasses.replace(recipe, batch_axes=("pod", "data"),
+                                      compress_pod_grads=True)
+        fn_c, make_c = build_cell(cfg, shape, pod_mesh, crecipe, device=dev,
+                                  opt_cfg=opt_cfg)
+        params, state, _ = make_c(fake=False, seed=args.seed)
+        real, comp = compression.compressed_pod_mean, {"seconds": []}
+
+        def timed(grads, ef, m):
+            sync()
+            t0 = time.perf_counter()
+            out = real(grads, ef, m)
+            sync()
+            comp["seconds"].append(time.perf_counter() - t0)
+            if "bound" not in comp:     # step 0: quantization error per leaf
+                # ef starts at 0, so the new ef is g - deq(q(g)); the
+                # means are deq, whose max-abs is 127 x the scale
+                worst, over = 0.0, 0
+                for (_, g), (_, e) in zip(opt_mod.leaves(out[0]),
+                                          opt_mod.leaves(out[1])):
+                    g, e = g.full_tensor(), e.full_tensor()
+                    scale = float(g.abs().max()) / 127.0
+                    err = float(e.abs().max())
+                    worst = max(worst, err / (scale / 2) if scale else 0.0)
+                    over += err > scale * 0.5 + 1e-6
+                comp["bound"] = worst    # max |deq - g| over scale/2
+                comp["leaves_over"] = over
+            return out
+
+        ts_mod.compression.compressed_pod_mean = timed
+        try:
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            params, state, lc, nc, sc = run_steps(torch, fn_c, params, state,
+                                                  batches[:DIST_STEPS], sync)
+        finally:
+            ts_mod.compression.compressed_pod_mean = real
+        cpeak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        del params, state
+        free()
+        # step 0 holds the first call's warm-up and the per-leaf gate
+        # above (full_tensor, max-abs and error of every leaf): the share
+        # is read from step 1 on
+        step2 = {"mesh": [1, 1, 1], "depth": cfg.num_layers,
+                 "losses": lc, "grad_norms": nc, "step_seconds": sc,
+                 "compress_seconds": comp["seconds"],
+                 "compress_share": [c / s for c, s in zip(
+                     comp["seconds"][1:], sc[1:])],
+                 "median_step_seconds": float(np.median(sc[1:])),
+                 "step0_err_over_half_scale": comp["bound"],
+                 "step0_leaves_over_bound": comp["leaves_over"],
+                 "peak_gb": cpeak}
+
+        # -- 3. the Supervisor on the mesh, the dry runs beside it ---------
+        # (they use the CPU alone; started after the timed steps 1 and 2,
+        # whose host-bound dispatch they would slow)
+        if on_card:
+            dry_self = dryrun_subprocess([dict(
+                arch=TRAIN_ARCH, shape_name=dataclasses.asdict(shape),
+                mesh_shape=(1, 1))])
+            dry_prod = dryrun_subprocess([dict(arch=a, shape_name=s)
+                                          for a, s in DRYRUN_CELLS])
+        smoke = not on_card
+        fail_at = SUPERVISOR_FAIL_AT if on_card else 4
+        whole = train_lm.run(smoke=smoke, seed=args.seed, torch_device=dev,
+                             mesh=mesh)
+        faulted = train_lm.run(smoke=smoke, seed=args.seed, torch_device=dev,
+                               fail_at=(fail_at,), mesh=mesh)
+        a, b = whole["losses"][-1], faulted["losses"][-1]
+        step3 = {"smoke": smoke, "steps": whole["steps"], "fail_at": fail_at,
+                 "seconds": [whole["seconds"], faulted["seconds"]],
+                 "last_loss": a, "faulted_last_loss": b,
+                 "last_loss_rel_diff": abs(a - b) / abs(a),
+                 "restarts": [whole["restarts"], faulted["restarts"]],
+                 "final_step": faulted["final_step"]}
+        free()
+    except BaseException:
+        for proc in (dry_self, dry_prod):     # stop what this phase started
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        raise
+    finally:
+        dist.destroy_process_group()
+        os.unlink(store.name)
+
+    # -- 4. dry runs: this cell against the card, two production cells ---------
+    step4 = None
+    if on_card:
+        mine = collect_dryrun(dry_self, 600)[0]
+        prod = collect_dryrun(dry_prod, 600)
+        mem = mine.get("memory", {})
+        step4 = {"cell": {k: mine.get(k) for k in ("status", "mesh",
+                                                    "recipe", "memory",
+                                                    "compile_seconds")},
+                 "predicted_peak_gb": mem.get("peak_bytes", 0) / 1e9,
+                 "measured_peak_gb": peak_gb,
+                 "predicted_over_measured": mem.get("peak_bytes", 0) / 1e9
+                 / peak_gb,
+                 "production": [
+                     {"arch": r["arch"], "shape": r["shape"],
+                      "mesh": r["mesh"], "status": r["status"],
+                      "error": r.get("error"),
+                      "peak_gb": r.get("memory", {}).get("peak_bytes", 0)
+                      / 1e9,
+                      "fits_80g": r.get("memory", {}).get("fits_80g"),
+                      "seconds": r.get("compile_seconds"),
+                      "collectives": r.get("collectives")} for r in prod]}
+
+    # -- 5. the H100 roofline ----------------------------------------------------
+    cost = cell_cost(cfg, shape, recipe, {"data": 1, "model": 1})
+    terms = cost.terms(H100, 1)
+    step5 = {"terms_s": terms, "bound_step_seconds": max(terms.values()),
+             "measured_step_seconds": step1["median_step_seconds"],
+             "measured_over_bound": step1["median_step_seconds"]
+             / max(terms.values())}
+    table = [{k: r.get(k) for k in ("arch", "shape", "mesh", "status",
+                                    "dominant", "step_time_lower_bound_s",
+                                    "roofline_fraction")}
+             for r in roofline_table(hw=H100)]
+    launches = read_counters(mods)
+    out = {"phase": "distributed", "arch": cfg.name, "batch": batch_n,
+           "seq": seq, "steps": DIST_STEPS,
+           "total_memory": torch.cuda.get_device_properties(0).total_memory
+           if on_card else None,
+           "h100_hbm_bytes": H100.hbm_bytes,
+           "mesh_step": step1, "compressed": step2, "supervisor": step3,
+           "dryrun": step4, "roofline": step5, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)                      # the phase's numbers before its checks
+    emit({"phase": "distributed_roofline_h100", "rows": table})
+    check(step1["max_rel_gap"] <= DIST_RTOL,
+          f"distributed: mesh step vs mesh-less step: {step1['max_rel_gap']}"
+          f" relative (losses {l1} vs {l0}, norms {n1} vs {n0})")
+    check(np.isfinite(lc + nc).all(),
+          f"distributed: compressed step not finite: {lc}, {nc}")
+    check(comp["leaves_over"] == 0,
+          f"distributed: {comp['leaves_over']} leaves' int8 error passed "
+          f"scale/2 + 1e-6 (worst {comp['bound']} of scale/2)")
+    check(step3["restarts"] == [0, 1],
+          f"distributed: Supervisor restarts {step3['restarts']} (want 0, 1)")
+    check(step3["final_step"] == step3["steps"],
+          f"distributed: final step {step3['final_step']}")
+    check(abs(a - b) <= SUPERVISOR_MESH_RTOL * abs(a),
+          f"distributed: Supervisor last losses {a} and {b}")
+    if on_card:
+        check(step4["cell"]["status"] == "ok",
+              f"distributed: dry run of the card's cell: {step4['cell']}")
+        for r in step4["production"]:
+            check(r["status"] == "ok", f"distributed: dry run {r}")
+    check(not any(launches.values()),
+          f"distributed: kernels launched on the train path: {launches}")
+    return launches
+
+
+def profile_mesh_step(torch, fn, params, state, batch):
+    """One more mesh step under ``torch.profiler`` (phase 8's reading)."""
+    step = lambda st, b: (lambda r: ({"p": r[0], "s": r[1]}, r[2]))(
+        fn(st["p"], st["s"], dict(b)))
+    _, prof = profile_train_step(torch, step, {"p": params, "s": state},
+                                 batch)
+    return prof
+
+
+# ---------------------------------------------------------------------------
 # The join path: the paper's §VII-A join setup at the main path's 1/10 cut
 # ---------------------------------------------------------------------------
 
@@ -2771,6 +3113,14 @@ def main(argv=None) -> int:
     train_launches = train_phase(args, torch, np, torch.device(args.device),
                                  on_card, mods)
 
+    # ---- 9. the distributed path on a one-rank mesh of the card ------------
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist_launches = distributed_phase(args, torch, np,
+                                      torch.device(args.device), on_card,
+                                      mods)
+
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; no result without a GPU",
               file=sys.stderr)
@@ -2780,6 +3130,7 @@ def main(argv=None) -> int:
         row["online_launches"] = online_launches[row["name"]]
         row["families_launches"] = family_launches[row["name"]]
         row["train_launches"] = train_launches[row["name"]]
+        row["distributed_launches"] = dist_launches[row["name"]]
     emit({"total_seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

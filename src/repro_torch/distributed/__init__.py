@@ -1,8 +1,5 @@
-"""Distribution recipes and the single-device sharding context.
-
-Meshes (DeviceMesh/DTensor) wait for the distributed slice; this package
-holds what the models need on one card.
-"""
+"""Distributed runtime: sharding recipes and the mesh context (DTensor),
+checkpointing, fault tolerance, elastic re-meshing, gradient compression."""
 from repro_torch.distributed import sharding
 
 __all__ = ["sharding"]

@@ -12,6 +12,14 @@ widened to float32 (exact) and its dtype recorded in ``meta.json`` under
 ``"dtypes"`` (tree name -> key path -> ``"bfloat16"``); restore narrows it
 back, again exactly.  Restore returns trees of torch tensors on the
 requested device.
+
+Under a process group (a mesh), ``save_checkpoint`` takes DTensor leaves:
+every rank joins their ``full_tensor()``, rank 0 alone writes, and a
+barrier publishes the directory to all ranks; ``restore_checkpoint`` waits
+on a barrier too, then each rank reads the whole arrays, which
+``elastic.reshard_params`` (or the train step) places on any mesh.  The
+format does not depend on the mesh, so a checkpoint written on one
+restores without one and the reverse.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import is_dtensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "flatten_tree", "unflatten_tree"]
@@ -56,10 +66,27 @@ def unflatten_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
+def _world():
+    """(rank, size) of the default process group, (0, 1) without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier():
+    import torch.distributed as dist
+    if _world()[1] > 1:
+        dist.barrier()
+
+
 def _to_host(x) -> Tuple[np.ndarray, Optional[str]]:
-    """(numpy array, recorded dtype name or None) of a leaf."""
+    """(numpy array, recorded dtype name or None) of a leaf (a DTensor's
+    whole array: a collective every rank joins)."""
     if not isinstance(x, torch.Tensor):
         return np.asarray(x), None
+    if is_dtensor(x):
+        x = x.full_tensor()
     x = x.detach().cpu()
     if x.dtype in _WIDENED:
         return x.to(torch.float32).numpy(), _WIDENED[x.dtype]
@@ -69,13 +96,16 @@ def _to_host(x) -> Tuple[np.ndarray, Optional[str]]:
 def save_checkpoint(ckpt_dir: str, step: int, trees: Dict[str, Any],
                     extra_meta: Optional[dict] = None) -> str:
     """trees: e.g. {"params": ..., "opt_state": ...} (nested dicts of
-    tensors or arrays)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    tensors, DTensors or arrays).  Under a process group every rank calls
+    it; rank 0 writes."""
+    writer = _world()[0] == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     dtypes: Dict[str, Dict[str, str]] = {}
     for name, tree in trees.items():
         host = {}
@@ -83,7 +113,11 @@ def save_checkpoint(ckpt_dir: str, step: int, trees: Dict[str, Any],
             host[path], dt = _to_host(x)
             if dt is not None:
                 dtypes.setdefault(name, {})[path] = dt
-        np.savez(os.path.join(tmp, f"{name}.npz"), **host)
+        if writer:
+            np.savez(os.path.join(tmp, f"{name}.npz"), **host)
+    if not writer:
+        _barrier()
+        return final
     meta = {"step": int(step), "time": time.time(), "trees": sorted(trees),
             **(extra_meta or {})}
     if dtypes:
@@ -93,6 +127,7 @@ def save_checkpoint(ckpt_dir: str, step: int, trees: Dict[str, Any],
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)  # atomic publish
+    _barrier()
     return final
 
 
@@ -108,7 +143,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
                        device="cpu") -> Tuple[int, Dict[str, Any]]:
     """(step, {tree name: tree of tensors on ``device``}) of ``step``, or
-    of the latest checkpoint."""
+    of the latest checkpoint.  Under a process group every rank calls it
+    and reads the whole arrays after a barrier."""
+    _barrier()
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")

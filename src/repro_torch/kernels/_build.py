@@ -159,6 +159,18 @@ def check_aligned(kernel: str, name: str, t) -> None:
             f"{size}-byte elements")
 
 
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise on DTensor inputs: the kernels take a device's local tensors,
+    and running them on a mesh is not ported (no JAX path calls its
+    Pallas kernels under a mesh: training and the dry run use
+    ``attn_impl="blockwise"``)."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if any(is_dtensor(t) for t in tensors):
+        raise ValueError(
+            f"{kernel} takes local tensors, not DTensors: on a mesh use "
+            f"attn_impl='blockwise' or 'dense'")
+
+
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise, on every device, when autograd would need ``kernel``'s
     backward: grad mode is on and an input requires grad.  No attention

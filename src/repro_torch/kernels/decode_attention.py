@@ -30,7 +30,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import check_aligned, refuse_grad
+from repro_torch.kernels._build import (check_aligned, refuse_dtensor,
+                                        refuse_grad)
 from repro_torch.kernels.ref import decode_attention_ref
 
 __all__ = ["decode_attention", "decode_attention_ref", "decode_splits",
@@ -85,6 +86,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
             f"multiple of Hk and lengths (B,) expected, got {tuple(q.shape)},"
             f" {tuple(k_cache.shape)}, {tuple(v_cache.shape)}, "
             f"{tuple(lengths.shape)}")
+    refuse_dtensor("decode_attention", q, k_cache, v_cache, lengths)
     refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths)

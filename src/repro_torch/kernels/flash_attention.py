@@ -28,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import check_aligned, refuse_grad
+from repro_torch.kernels._build import (check_aligned, refuse_dtensor,
+                                        refuse_grad)
 from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_ref", "launches"]
@@ -58,6 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B,Sq,H,D); k/v: (B,Skv,Hk,D). Returns (B,Sq,H,D) in q's type.
     Forward only: inputs that require grad under grad mode raise."""
     _check(q, k, v, causal)
+    refuse_dtensor("flash_attention", q, k, v)
     refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)

@@ -1,4 +1,5 @@
-"""Training launcher: the Supervisor/checkpoint/pipeline path on one device.
+"""Training launcher: the Supervisor/checkpoint/pipeline path, on one
+device or on a mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
       --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir ckpt/
@@ -31,11 +32,17 @@ def build_trainer(cfg, recipe, opt_cfg, mesh=None,
                   device=DEFAULT_TORCH_DEVICE):
     """``step(state, batch) -> (state, metrics)`` for the Supervisor:
     moves the numpy ``batch`` onto ``device`` and runs one train step on
-    ``state = {"params", "opt_state"}`` (updated in place)."""
+    ``state = {"params", "opt_state"}`` (updated in place).  With a
+    ``mesh`` the step runs on DTensors; a state restored from a checkpoint
+    (whole arrays) is placed on the mesh first, so the Supervisor restarts
+    on it."""
     dev = resolve_torch_device(device)
     step_fn = ts_mod.make_train_step(cfg, recipe, mesh, opt_cfg)
+    moments = opt_cfg.moment_dtype
 
     def supervised_step(state, batch):
+        if mesh is not None:
+            state = ts_mod.shard_state(state, cfg, recipe, mesh, moments)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         params, opt_state, metrics = step_fn(state["params"],
                                              state["opt_state"], batch)

@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.session import DEFAULT_TORCH_DEVICE, resolve_torch_device
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.distributed.elastic import reshard_params
 from repro_torch.distributed.fault_tolerance import FailureInjector, Supervisor
 from repro_torch.distributed.sharding import Recipe
 from repro_torch.launch.train import build_trainer
@@ -49,23 +50,28 @@ def config(smoke: bool):
 
 
 def run(smoke: bool = False, seed: int = 0, torch_device=DEFAULT_TORCH_DEVICE,
-        fail_at: tuple = (), params=None) -> dict:
+        fail_at: tuple = (), params=None, mesh=None) -> dict:
     """Train from a fresh checkpoint directory (removed afterwards) and
     return the record.  ``fail_at`` injects failures at those steps;
     ``params`` are the initial float32 weights on the device (drawn from
-    ``seed`` when None; the token stream is ``seed``'s either way)."""
+    ``seed`` when None; the token stream is ``seed``'s either way).  With
+    a ``mesh`` the weights are placed on it and the step, its checkpoints
+    and the Supervisor's restarts run there."""
     dev = resolve_torch_device(torch_device)
     cfg, steps, batch, seq = config(smoke)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_params(cfg, gen, device=dev)
     n = sum(x.numel() for _, x in opt_mod.leaves(params))
+    if mesh is not None:
+        params = reshard_params(params, cfg, mesh, RECIPE, device=dev)
     opt_cfg = opt_mod.AdamWConfig(lr=6e-4, warmup_steps=20, total_steps=steps)
     pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=seed)
     state = {"params": params,
              "opt_state": ts_mod.init_opt_state(params, cfg, RECIPE, opt_cfg)}
     with tempfile.TemporaryDirectory(prefix="train_lm_") as ckpt_dir:
-        sup = Supervisor(build_trainer(cfg, RECIPE, opt_cfg, device=dev),
+        sup = Supervisor(build_trainer(cfg, RECIPE, opt_cfg, mesh=mesh,
+                                       device=dev),
                          state, pipe.batch_for_step, ckpt_dir, ckpt_every=25,
                          injector=FailureInjector(tuple(fail_at)))
         t0 = time.perf_counter()

@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import from_shard, is_dtensor
 from repro_torch.kernels import ops as kernel_ops
 
 __all__ = ["dense_attention", "blockwise_attention", "decode_attention",
@@ -110,6 +111,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
         return kernel_ops.decode_attention(q, k_cache, v_cache, lengths)
     b, _, h, d = q.shape
     hk = k_cache.shape[2]
+    if is_dtensor(q):
+        # the caches keep their length split: the products and the softmax
+        # run on DTensors, with q's heads aligned to the KV-head groups
+        q = q.redistribute(q.device_mesh, _aligned(q, hk))
     qg = _group_heads(q, hk)[:, 0]                             # (B,Hk,G,D)
     scores = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_cache.float())
     scores = scores / math.sqrt(d)
@@ -121,8 +126,49 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _on_shards(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's shards of DTensor q/k/v: attention is
+    independent across batch rows and KV-head groups, so the shards are
+    first aligned (k and v take q's batch split; heads stay split where
+    both H and Hk divide by the mesh dim, else are whole) and the output
+    keeps q's placements.  The einsums then see plain tensors (DTensor's
+    merged-dim shardings of the 5-D products do not trace under
+    ``FakeTensorMode``), and the numbers are the unsharded ones."""
+    mesh = q.device_mesh
+    pl = _aligned(q, k.shape[2])
+    loc = [x.redistribute(mesh, pl).to_local() for x in (q, k, v)]
+    return from_shard(fn(*loc), mesh, pl, q.shape)
+
+
+def _aligned(q, hk: int):
+    """q's placements with its shards aligned to the KV-head groups: the
+    batch split kept, the heads split only where the Hk KV heads divide by
+    the mesh dims that split them (so (H,) -> (Hk, G) keeps the split),
+    everything else whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    pl = []
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            pl.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2 and hk % mesh.size(i) == 0:
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    heads = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                      if p == Shard(2))
+    if hk % heads:                  # several mesh dims split the heads
+        pl = [Replicate() if p == Shard(2) else p for p in pl]
+    return pl
+
+
 def attention(q, k, v, *, impl: str = "blockwise", causal: bool = True,
               q_offset: int = 0, block_kv: int = 1024):
+    if is_dtensor(q) and impl != "pallas":
+        return _on_shards(
+            lambda q_, k_, v_: attention(q_, k_, v_, impl=impl, causal=causal,
+                                         q_offset=q_offset,
+                                         block_kv=block_kv), q, k, v)
     if impl == "dense" or q.shape[1] <= 256:
         return dense_attention(q, k, v, causal=causal, q_offset=q_offset)
     if impl == "pallas":

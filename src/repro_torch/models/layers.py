@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import from_shard, is_dtensor
+
 __all__ = ["matmul_f32", "bmm_f32", "rms_norm", "swiglu", "gelu_mlp", "rope", "mrope",
            "take_embedding", "softmax_xent"]
 
@@ -61,6 +63,96 @@ def _bf16_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mm(a, b, out_dtype=torch.float32)
 
 
+def dtensor_mm(a, b, local_mm):
+    """``local_mm`` (a product of 2-D, or 3-D batched, local tensors) of
+    two DTensors on one mesh, as a DTensor.  DTensor has no sharding rule
+    for the ``out_dtype`` products, and its own choices for ``torch.mm``
+    (in the backward above all) can split the token dim over several mesh
+    dims, a layout that does not trace under ``FakeTensorMode``; this rule
+    is ``torch.mm``'s and predictable.  On each mesh dim the operands are
+    first redistributed to one of five forms: both sharded on the batch
+    dim (out sharded there), ``a``'s rows sharded and ``b`` whole (out on
+    rows), ``b``'s columns sharded and ``a`` whole (out on columns), the
+    contraction sharded on both (out ``Partial``), or both whole.
+    Gradients get the placements the product implies (``Partial`` where
+    the forward split the other operand's free dim)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = (a if isinstance(a, DTensor) else b).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(a, DTensor):
+        a = DTensor.from_local(a, mesh, rep, run_check=False)
+    if not isinstance(b, DTensor):
+        b = DTensor.from_local(b, mesh, rep, run_check=False)
+    nd = a.dim()
+    rows, inner, cols = nd - 2, nd - 1, nd - 1   # a's rows and k, b's cols
+    pa, pb, po, ga, gb = [], [], [], [], []
+    for xa, xb in zip(a.placements, b.placements):
+        sa = xa.dim % nd if isinstance(xa, Shard) else None
+        sb = xb.dim % nd if isinstance(xb, Shard) else None
+        # (a, b, out, a's gradient, b's gradient)
+        if nd == 3 and 0 in (sa, sb):
+            form = (Shard(0),) * 5
+        elif sa == rows:
+            form = (Shard(rows), Replicate(), Shard(rows), Shard(rows),
+                    Partial())
+        elif sb == cols:
+            form = (Replicate(), Shard(cols), Shard(cols), Partial(),
+                    Shard(cols))
+        elif sa == inner or sb == nd - 2:
+            form = (Shard(inner), Shard(nd - 2), Partial(), Shard(inner),
+                    Shard(nd - 2))
+        else:
+            form = (Replicate(),) * 5
+        for lst, p in zip((pa, pb, po, ga, gb), form):
+            lst.append(p)
+    la = a.redistribute(mesh, pa).to_local(grad_placements=ga)
+    lb = b.redistribute(mesh, pb).to_local(grad_placements=gb)
+    return from_shard(local_mm(la, lb), mesh, po,
+                      (*a.shape[:-1], b.shape[-1]))
+
+
+def _whole_middle(x):
+    """DTensor ``x`` with no dim split but its first and last: merged into
+    rows, a split middle dim (DTensor may split the sequence where GSPMD
+    would) would need a layout DTensor cannot trace."""
+    from torch.distributed.tensor import Replicate, Shard
+    nd = x.dim()
+    want = [Replicate() if isinstance(p, Shard) and 0 < p.dim % nd < nd - 1
+            else p for p in x.placements]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _rows(x):
+    """A tensor (..., K) as (T, K) rows, a DTensor's middle dims whole."""
+    if is_dtensor(x):
+        x = _whole_middle(x)
+    return x.reshape(-1, x.shape[-1])
+
+
+class _RowsGrad(torch.autograd.Function):
+    """Identity whose gradient, on its way back to :func:`_rows`' merged
+    rows, has its middle dims whole (see :func:`_rows`)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _whole_middle(g)
+        loc = g.to_local()
+        if loc.is_contiguous():
+            return g
+        # the reshape before takes a view of it: a split of the last dim
+        # leaves the local shard strided while the DTensor is contiguous
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(loc.contiguous(), g.device_mesh,
+                                  g.placements, run_check=False,
+                                  shape=g.shape, stride=g.stride())
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` (``w`` 2-D) in the promoted type of the two, accumulated
     and returned in float32.
@@ -70,6 +162,9 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     :class:`_MatmulF32`); on the CPU they widen to float32, where each
     product is exact and autograd differentiates it as it stands.
     """
+    if is_dtensor(x) or is_dtensor(w):
+        out = dtensor_mm(_rows(x), w, _local_f32)
+        return _RowsGrad.apply(out.reshape(*x.shape[:-1], w.shape[-1]))
     dt = torch.promote_types(x.dtype, w.dtype)
     if dt != torch.float32 and x.device.type == "cuda":
         out = _bf16_f32(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt))
@@ -80,10 +175,19 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` (3-D operands) as :func:`matmul_f32`: the promoted
     type of the two, accumulated and returned in float32."""
+    if is_dtensor(a) or is_dtensor(b):
+        return dtensor_mm(a, b, _local_f32)
+    return _local_f32(a, b)
+
+
+def _local_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The float32 product of two 2-D or 3-D local tensors (the body of
+    :func:`bmm_f32`)."""
     dt = torch.promote_types(a.dtype, b.dtype)
     if dt != torch.float32 and a.device.type == "cuda":
         return _bf16_f32(a.to(dt), b.to(dt))
-    return torch.bmm(a.float(), b.float())
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    return mm(a.float(), b.float())
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -97,6 +201,8 @@ def swiglu(x, w_gate, w_up, w_down, ctx=None):
     g = matmul_f32(x, w_gate)
     u = matmul_f32(x, w_up)
     h = (F.silu(g) * u).to(x.dtype)
+    if ctx is not None:
+        h = ctx.constrain(h, "batch", None, "heads")
     return matmul_f32(h, w_down).to(x.dtype)
 
 
@@ -106,6 +212,8 @@ def gelu_mlp(x, w_up, w_down, b_up=None, b_down=None, ctx=None):
         u = u + b_up
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(u, approximate="tanh").to(x.dtype)
+    if ctx is not None:
+        h = ctx.constrain(h, "batch", None, "heads")
     out = matmul_f32(h, w_down)
     if b_down is not None:
         out = out + b_down
@@ -160,17 +268,90 @@ def mrope(x, positions_3d, sections, theta: float = 1e6):
     return _apply_rot(x.float(), cos, sin).to(x.dtype)
 
 
+def _one_hot(idx, n: int, dtype):
+    """``idx`` (...,) as (..., n) one-hot rows of ``dtype``: a comparison
+    against ``arange(n)``, which DTensor shards as ``idx`` is sharded."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _splits(x, dim: int) -> bool:
+    """Whether DTensor ``x`` is split along ``dim`` on some mesh dim."""
+    from torch.distributed.tensor import Shard
+    return any(isinstance(p, Shard) and p.dim % x.dim() == dim % x.dim()
+               for p in x.placements)
+
+
+def _gather_rows(table, tokens):
+    """``table[tokens]`` of a DTensor table whose vocab dim is whole: each
+    rank gathers its tokens' rows from its part of the table (the rows'
+    dim split where the table's is and the tokens are whole), and the
+    table's gradient sums over the token shards.  The same gather and
+    gradient as without a mesh."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+           for p in tokens.placements]
+    cols = [Shard(1) if isinstance(p, Shard) and p.dim % 2 == 1
+            and not isinstance(tok[i], Shard) else Replicate()
+            for i, p in enumerate(table.placements)]
+    rows = table.redistribute(mesh, cols).to_local(grad_placements=[
+        Partial() if isinstance(tok[i], Shard) else cols[i]
+        for i in range(mesh.ndim)])
+    out = rows[tokens.redistribute(mesh, tok).to_local()]
+    return from_shard(out, mesh, [
+        tok[i] if isinstance(tok[i], Shard) else
+        Shard(out.dim() - 1) if isinstance(cols[i], Shard) else Replicate()
+        for i in range(mesh.ndim)], (*tokens.shape, table.shape[1]))
+
+
 def take_embedding(table, tokens, ctx=None):
-    """Token embedding lookup; table (V, D).  One device, so a gather."""
-    return table[tokens]
+    """Token embedding lookup; table (V, D) possibly vocab-sharded.
+
+    Without a mesh, a gather.  Under a mesh with the vocab split, as JAX:
+    the one-hot product keeps the contraction sharded over V (a
+    partial-sum all-reduce of the small (B, S, D) output instead of an
+    all-gather of the table); with the vocab whole, the gather on each
+    rank's part (:func:`_gather_rows`).  The product has one nonzero term a
+    row, so the values are the gather's; the gather also keeps the
+    table's gradient summed as without a mesh (in bfloat16 the product's
+    float32 accumulation would round it otherwise).
+    """
+    if ctx is None or ctx.mesh is None:
+        return table[tokens]
+    if not _splits(table, 0):
+        out = _gather_rows(table, tokens)
+        return ctx.constrain(out, "batch", *([None] * (out.dim() - 2)),
+                             None)
+    onehot = _one_hot(tokens, table.shape[0], table.dtype)
+    onehot = ctx.constrain(onehot, "batch", *([None] * (tokens.dim() - 1)),
+                           "heads")
+    out = matmul_f32(onehot, table).to(table.dtype)
+    return ctx.constrain(out, "batch", *([None] * (out.dim() - 2)), None)
 
 
 def softmax_xent(logits, targets, ctx=None):
     """Mean next-token cross-entropy: logsumexp minus the target logit, in
     float32, averaged over every target (``targets`` (B, S), or (B, S, C)
     for the audio family's codebooks, indexing the last dim of
-    ``logits``)."""
+    ``logits``).
+
+    Under a mesh with the logits vocab-sharded, the target logit is a
+    one-hot contraction, as JAX's (exact: one nonzero term a row), and the
+    log-sum-exp is written out (max, then the sum of exponentials), which
+    DTensor reduces over the split vocab without gathering it.  With the
+    vocab whole, the single-device ops."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, targets[..., None].long())[..., 0]
+    if ctx is None or ctx.mesh is None or not _splits(logits, -1):
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, targets[..., None].long())[..., 0]
+        return torch.mean(lse - ll)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    onehot = _one_hot(targets, logits.shape[-1], torch.bfloat16)
+    dims = ("batch",) + (None,) * (targets.dim() - 1) + ("heads",)
+    onehot = ctx.constrain(onehot, *dims)
+    ll = (logits * onehot.float()).sum(dim=-1)
     return torch.mean(lse - ll)

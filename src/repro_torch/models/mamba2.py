@@ -80,15 +80,17 @@ def _ssd_chunked(xh, b_in, c_in, dt, loga, state, chunk: int):
     return torch.cat(ys, dim=1).to(xh.dtype), st
 
 
-def _in_proj(h, blk, cfg, conv_prev):
+def _in_proj(h, blk, cfg, conv_prev, ctx=None):
     """The block's norm, projections and causal conv: (x-branch, z, B, C,
-    dt, conv_state)."""
+    dt, conv_state); the full-sequence block constrains the x-branch."""
     x = layers.rms_norm(h, blk["ln"], cfg.norm_eps)
     z = layers.matmul_f32(x, blk["wz"])
     xin = layers.matmul_f32(x, blk["wx"]).to(h.dtype)
     xin, conv_state = _causal_conv(xin, blk["conv_w"], blk["conv_b"],
                                    conv_prev)
     xin = F.silu(xin)
+    if ctx is not None:
+        xin = ctx.constrain(xin, "batch", None, "heads")
     b_in = layers.matmul_f32(x, blk["wB"])
     c_in = layers.matmul_f32(x, blk["wC"])
     dt = _softplus(layers.matmul_f32(x, blk["wdt"]) + blk["dt_bias"])
@@ -107,7 +109,8 @@ def mamba2_block(h, blk, cfg: ModelConfig, ctx, conv_prev=None,
     din = cfg.expand * d
     nheads = din // cfg.ssm_head_dim
     p = cfg.ssm_head_dim
-    xin, z, b_in, c_in, dt, conv_state = _in_proj(h, blk, cfg, conv_prev)
+    xin, z, b_in, c_in, dt, conv_state = _in_proj(h, blk, cfg, conv_prev,
+                                                  ctx)
     loga = -torch.exp(blk["a_log"]) * dt                       # (B,T,H), <= 0
     if ssm_prev is None:
         ssm_prev = torch.zeros((bsz, nheads, p, cfg.ssm_state_dim),
@@ -168,7 +171,8 @@ def hybrid_logits(params, cfg: ModelConfig, batch, ctx, remat: str = "none"):
         h = grp(h, [{n: v[gi][ki] for n, v in mamba.items()}
                     for ki in range(k_inner)], params["shared"])
     h = layers.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return layers.matmul_f32(h, params["lm_head"])
+    return ctx.constrain(layers.matmul_f32(h, params["lm_head"]),
+                         "batch", "seq", "heads")
 
 
 def hybrid_loss(params, cfg, batch, ctx):

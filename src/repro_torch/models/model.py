@@ -24,28 +24,36 @@ __all__ = ["loss_fn", "prefill_fn", "decode_fn", "rwkv_prefill", "hybrid_prefill
 # ---------------------------------------------------------------------------
 
 def loss_fn(params, cfg: ModelConfig, batch, ctx: ShardingCtx):
-    """Scalar float32 training loss of ``batch`` (tokens (B, S+1))."""
-    if cfg.family == "rwkv":
-        return rwkv.rwkv_loss(params, cfg, batch, ctx)
-    if cfg.family == "hybrid":
-        return mamba2.hybrid_loss(params, cfg, batch, ctx)
-    return transformer.transformer_loss(params, cfg, batch, ctx)
+    """Scalar float32 training loss of ``batch`` (tokens (B, S+1)).
+
+    Each entry point runs under ``ctx.scope()``: under a mesh, the tensors
+    the model makes itself meet the DTensor params as replicated ones (a
+    caller that differentiates the loss runs its backward in that scope
+    too)."""
+    with ctx.scope():
+        if cfg.family == "rwkv":
+            return rwkv.rwkv_loss(params, cfg, batch, ctx)
+        if cfg.family == "hybrid":
+            return mamba2.hybrid_loss(params, cfg, batch, ctx)
+        return transformer.transformer_loss(params, cfg, batch, ctx)
 
 
 def prefill_fn(params, cfg: ModelConfig, batch, ctx: ShardingCtx):
-    if cfg.family == "rwkv":
-        return rwkv_prefill(params, cfg, batch, ctx)
-    if cfg.family == "hybrid":
-        return hybrid_prefill(params, cfg, batch, ctx)
-    return transformer.transformer_prefill(params, cfg, batch, ctx)
+    with ctx.scope():
+        if cfg.family == "rwkv":
+            return rwkv_prefill(params, cfg, batch, ctx)
+        if cfg.family == "hybrid":
+            return hybrid_prefill(params, cfg, batch, ctx)
+        return transformer.transformer_prefill(params, cfg, batch, ctx)
 
 
 def decode_fn(params, cfg: ModelConfig, batch, cache, ctx: ShardingCtx):
-    if cfg.family == "rwkv":
-        return rwkv.rwkv_decode(params, cfg, batch, cache, ctx)
-    if cfg.family == "hybrid":
-        return mamba2.hybrid_decode(params, cfg, batch, cache, ctx)
-    return transformer.transformer_decode(params, cfg, batch, cache, ctx)
+    with ctx.scope():
+        if cfg.family == "rwkv":
+            return rwkv.rwkv_decode(params, cfg, batch, cache, ctx)
+        if cfg.family == "hybrid":
+            return mamba2.hybrid_decode(params, cfg, batch, cache, ctx)
+        return transformer.transformer_decode(params, cfg, batch, cache, ctx)
 
 
 # ---------------------------------------------------------------------------

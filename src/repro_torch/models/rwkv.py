@@ -180,7 +180,8 @@ def rwkv_logits(params, cfg: ModelConfig, batch, ctx, remat: str = "none"):
     h, _ = scan_blocks(lambda hh, blk: (rwkv_block(hh, blk, cfg, ctx)[0], None),
                        h, params["blocks"], remat)
     h = layers.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return layers.matmul_f32(h, params["lm_head"])
+    return ctx.constrain(layers.matmul_f32(h, params["lm_head"]),
+                         "batch", "seq", "heads")
 
 
 def rwkv_loss(params, cfg, batch, ctx):

@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, moe
 
@@ -115,10 +116,23 @@ def _project_qkv(x, blk, cfg, ctx):
     v = layers.matmul_f32(x, blk["wv"])
     if cfg.attention_bias and "bq" in blk:
         q, k, v = q + blk["bq"], k + blk["bk"], v + blk["bv"]
-    q = q.to(x.dtype).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.to(x.dtype).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.to(x.dtype).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = _heads(q.to(x.dtype), cfg.num_heads, cfg.head_dim, ctx)
+    k = _heads(k.to(x.dtype), cfg.num_kv_heads, cfg.head_dim, ctx)
+    v = _heads(v.to(x.dtype), cfg.num_kv_heads, cfg.head_dim, ctx)
+    q = ctx.constrain(q, "batch", None, "heads", None)
+    k = ctx.constrain(k, "batch", None, "heads", None)
     return q, k, v
+
+
+def _heads(x, n: int, d: int, ctx):
+    """(B, S, n*d) -> (B, S, n, d).  Under a mesh the flat projection is
+    first redistributed to the placements of ("batch", None, "heads",
+    None) (a split of n*d by heads), which the reshape can keep."""
+    b, s = x.shape[:2]
+    if ctx.mesh is None:
+        return x.reshape(b, s, n, d)
+    sh = ctx.sharding((b, s, n, d), ("batch", None, "heads", None))
+    return x.redistribute(ctx.mesh, sh.placements).reshape(b, s, n, d)
 
 
 def _apply_rope(q, k, cfg, positions, pos3d):
@@ -202,13 +216,21 @@ def _forward(params, cfg: ModelConfig, batch, ctx, return_kv: bool,
     return layers.rms_norm(h, params["final_ln"], cfg.norm_eps), aux, kv
 
 
-def head_logits(params, cfg: ModelConfig, h):
-    """Float32 logits of hidden states ``h`` (..., D): (..., V), or
-    (..., C, V) for the audio family's per-codebook heads."""
+def head_logits(params, cfg: ModelConfig, h, ctx=None):
+    """Float32 logits of hidden states ``h`` (B, S, D) or (B, D): (..., V),
+    or (..., C, V) for the audio family's per-codebook heads, constrained
+    as JAX constrains its full logits (batch, seq, [codebook,] vocab on
+    "heads"; the last position alone keeps the batch and vocab roles)."""
     if cfg.family == "audio":
-        return torch.stack([layers.matmul_f32(h, w)
-                            for w in params["lm_head"].unbind(0)], dim=-2)
-    return layers.matmul_f32(h, params["lm_head"])
+        logits = torch.stack([layers.matmul_f32(h, w)
+                              for w in params["lm_head"].unbind(0)], dim=-2)
+    else:
+        logits = layers.matmul_f32(h, params["lm_head"])
+    if ctx is None:
+        return logits
+    dims = (("batch",) + ("seq",) * (h.dim() - 2)
+            + (None,) * (cfg.family == "audio") + ("heads",))
+    return ctx.constrain(logits, *dims)
 
 
 def transformer_logits(params, cfg: ModelConfig, batch, ctx,
@@ -216,7 +238,7 @@ def transformer_logits(params, cfg: ModelConfig, batch, ctx,
     """(B, S, V) float32 logits ((B, S, C, V) for audio), the auxiliary
     loss (0 for dense) and, with ``return_kv``, the stacked per-layer K/V."""
     h, aux, kv = _forward(params, cfg, batch, ctx, return_kv, remat)
-    return head_logits(params, cfg, h), aux, kv
+    return head_logits(params, cfg, h, ctx), aux, kv
 
 
 def transformer_loss(params, cfg: ModelConfig, batch, ctx) -> torch.Tensor:
@@ -237,7 +259,10 @@ def transformer_prefill(params, cfg: ModelConfig, batch, ctx):
     JAX's full logits sliced at -1, without the (B, S, V) tensor.
     """
     h, _, (k_cache, v_cache) = _forward(params, cfg, batch, ctx, True)
-    return head_logits(params, cfg, h[:, -1]), {"k": k_cache, "v": v_cache}
+    k_cache = ctx.constrain(k_cache, None, "batch", "kv_seq", None, None)
+    v_cache = ctx.constrain(v_cache, None, "batch", "kv_seq", None, None)
+    return (head_logits(params, cfg, h[:, -1], ctx),
+            {"k": k_cache, "v": v_cache})
 
 
 def init_kv_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
@@ -267,6 +292,45 @@ def _quantize_kv(x):
     return q.to(torch.int8), scale
 
 
+def _put(dst, bidx, lengths, val):
+    """``dst[b, lengths[b]] = val[b]`` in place for every row ``b``.  On a
+    DTensor cache (B, S, ...), whose batch and length may be split, each
+    rank writes in its own shard the rows of its batch rows whose length
+    falls in its part of S (a row outside it rewrites its own value), so
+    only the touched rows are read and written."""
+    if not is_dtensor(dst):
+        dst[bidx, lengths] = val.to(dst.dtype)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, pl = dst.device_mesh, dst.placements
+    loc = dst.to_local()
+    n = loc.shape
+    # where this rank's part of S starts: its chunk, major to minor over
+    # the mesh dims that split S (evenly: a spec splits only what divides)
+    chunk, coord = 0, mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if p == Shard(1):
+            chunk = chunk * mesh.size(i) + coord[i]
+    start = chunk * n[1]
+
+    def rows(x, want):          # x (B, ...) as the rows of dst's shard
+        if not is_dtensor(x):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, want).to_local()
+
+    v = rows(val, [Shard(p.dim - (p.dim > 1))
+                   if isinstance(p, Shard) and p.dim != 1 else Replicate()
+                   for p in pl]).to(loc.dtype)
+    pos = rows(lengths, [p if p == Shard(0) else Replicate()
+                         for p in pl]) - start
+    inside = (pos >= 0) & (pos < n[1])
+    inside = inside.reshape(inside.shape + (1,) * (v.dim() - 1))
+    b = torch.arange(n[0], device=loc.device)
+    pos = torch.clamp(pos, 0, n[1] - 1)
+    loc[b, pos] = torch.where(inside, v, loc[b, pos])
+
+
 def write_kv(cache, l: int, bidx, lengths, k, v):
     """Writes one token's K/V (B, 1, Hk, D) at ``lengths`` into layer ``l``
     of ``cache`` in place and returns the layer's (K, V) for attention:
@@ -279,15 +343,15 @@ def write_kv(cache, l: int, bidx, lengths, k, v):
     backend keeps the float32 product too)."""
     k_l, v_l = cache["k"][l], cache["v"][l]
     if "k_scale" not in cache:
-        k_l[bidx, lengths] = k[:, 0].to(k_l.dtype)
-        v_l[bidx, lengths] = v[:, 0].to(v_l.dtype)
+        _put(k_l, bidx, lengths, k[:, 0])
+        _put(v_l, bidx, lengths, v[:, 0])
         return k_l, v_l
     out = []
     for x, vals, scales in ((k, k_l, cache["k_scale"][l]),
                             (v, v_l, cache["v_scale"][l])):
         xq, xs = _quantize_kv(x[:, 0])
-        vals[bidx, lengths] = xq
-        scales[bidx, lengths] = xs
+        _put(vals, bidx, lengths, xq)
+        _put(scales, bidx, lengths, xs)
         out.append((vals.float() * scales[..., None].to(torch.bfloat16)
                     .float()).to(x.dtype))
     return tuple(out)
@@ -321,4 +385,4 @@ def transformer_decode(params, cfg: ModelConfig, batch, cache, ctx):
         y, _ = _mlp(x2, blk, cfg, ctx)
         h = h + y.to(h.dtype)
     h = layers.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return head_logits(params, cfg, h[:, -1]), cache
+    return head_logits(params, cfg, h[:, -1], ctx), cache

@@ -36,6 +36,11 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, mesh=None,
                  recipe: Recipe = Recipe(remat="none"), max_seq: int = 512,
                  device=DEFAULT_TORCH_DEVICE):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServeEngine serves on one device: serving on a mesh "
+                "(DTensor params and caches through the attention kernels) "
+                "is not ported; the mesh layer trains and dry-runs cells")
         self.cfg = cfg
         self.params = params
         self.ctx = ShardingCtx(mesh, recipe)

@@ -125,8 +125,8 @@ def adamw_init(params, cfg: AdamWConfig):
     """Zero moments in ``cfg.moment_dtype`` beside ``params``, and a 0-d
     int32 step, all on the parameters' device."""
     def zero_like(p):
-        return _store(torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), cfg.moment_dtype)
+        return _store(torch.zeros_like(p, dtype=torch.float32),
+                      cfg.moment_dtype)
 
     dev = next(leaves(params))[1].device
     return {"m": map_tree(zero_like, params),

@@ -980,3 +980,82 @@ def test_attention_kernels_refuse_gradients_on_the_card(dev):
     with torch.no_grad():
         ops.flash_attention(q, k, v)
         ops.decode_attention(q[:, :1], k, v, lengths)
+
+
+@pytest.fixture
+def card_mesh(dev, tmp_path):
+    """A (1, 1) ("data", "model") mesh of a one-rank NCCL world."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data",
+                                                              "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ("starcoder2-3b", "qwen2-moe-a2.7b"))
+def test_mesh_train_step_on_the_card_matches_meshless(dev, card_mesh, arch):
+    """Two reduced bf16 train steps on DTensor params of a one-rank NCCL
+    mesh (the bf16 products through ``dtensor_mm``, the embedding's
+    gather, the MoE's sharded dispatch) give the mesh-less steps' losses,
+    grad norms and parameters to the bit."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import Recipe
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="bfloat16")
+    recipe = Recipe(remat="block")
+    opt_cfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    pipe = TokenPipeline(cfg.vocab_size, 4, 64, seed=1)
+    out = []
+    for mesh in (None, card_mesh):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        state = {"params": params, "opt_state": ts_mod.init_opt_state(
+            params, cfg, recipe, opt_cfg)}
+        if mesh is not None:
+            state = ts_mod.shard_state(state, cfg, recipe, mesh, "float32")
+        step = ts_mod.make_train_step(cfg, recipe, mesh, opt_cfg)
+        ms = []
+        for i in range(2):
+            p, o, m = step(state["params"], state["opt_state"],
+                           {k: torch.as_tensor(v, device=dev)
+                            for k, v in pipe.batch_for_step(i).items()})
+            state = {"params": p, "opt_state": o}
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        out.append((ms, {"/".join(k): x.full_tensor() if mesh is not None
+                         else x for k, x in opt_mod.leaves(state["params"])}))
+    assert out[1][0] == out[0][0]
+    for k, x in out[0][1].items():
+        assert torch.equal(out[1][1][k], x), k
+
+
+def test_attention_kernels_refuse_dtensors_on_the_card(dev, card_mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attention
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (DTensor.from_local(
+        torch.randn(1, 512, 4, 64, generator=g, device=dev)
+        .to(torch.bfloat16), card_mesh, [Replicate()] * 2)
+        for _ in range(3))
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="not DTensors"):
+            ops.flash_attention(q, k, v)
+        with pytest.raises(ValueError, match="not DTensors"):
+            attention(q, k, v, impl="pallas")
+        lengths = torch.full((1,), 100, device=dev)
+        with pytest.raises(ValueError, match="not DTensors"):
+            ops.decode_attention(q[:, :1], k, v, lengths)

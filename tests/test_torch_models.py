@@ -178,13 +178,51 @@ def test_init_params_draws_each_layer_and_matches_defs():
     assert torch.equal(again["blocks"]["w_down"], p["blocks"]["w_down"])
 
 
-def test_sharding_ctx_is_single_device():
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh of a fake one-rank world."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                             "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharding_ctx_is_single_device(one_rank_mesh):
+    """Without a mesh the context is the single-device no-op; a (1, 1)
+    mesh, refused before the distributed slice, is accepted and gives the
+    mesh-less numbers: no spec entry, every placement replicated, the same
+    loss."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.elastic import reshard_params
     assert TRecipe() == TRecipe(**{f.name: getattr(Recipe(), f.name)
                                    for f in dataclasses.fields(Recipe)})
-    with pytest.raises(NotImplementedError, match="one device"):
-        TCtx(mesh=object())
     x = torch.ones(2)
     assert TCtx().constrain(x, "batch") is x
+    ctx = TCtx(mesh=one_rank_mesh, recipe=TRecipe(remat="none"))
+    assert ctx.spec((4, 8), ("batch", "heads")) == (None, None)
+    y = ctx.constrain(x, "batch")
+    assert y.placements == (Replicate(), Replicate())
+    assert torch.equal(y.full_tensor(), x)
+    tcfg = dataclasses.replace(treduced(TARCHS["starcoder2-3b"]),
+                               dtype="float32")
+    params = tparams.init_params(tcfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tokens = torch.randint(0, tcfg.vocab_size, (2, 17),
+                           generator=torch.Generator().manual_seed(1))
+    want = tmodel.loss_fn(params, tcfg, {"tokens": tokens},
+                          TCtx(None, ctx.recipe))
+    got = tmodel.loss_fn(reshard_params(params, tcfg, one_rank_mesh,
+                                        ctx.recipe),
+                         tcfg, {"tokens": tokens}, ctx)
+    assert float(got.full_tensor()) == float(want)
 
 
 def test_configs_are_copies_of_the_jax_ones():

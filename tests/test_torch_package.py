@@ -43,7 +43,10 @@ def test_port_imports_without_jax_or_repro():
                  "launch.bench_write_path", "train.optimizer",
                  "train.train_step", "data.pipeline",
                  "distributed.checkpoint", "distributed.fault_tolerance",
-                 "launch.train", "launch.train_lm"):
+                 "launch.train", "launch.train_lm",
+                 "distributed.compression", "distributed.elastic",
+                 "launch.mesh", "launch.cells", "launch.analytic",
+                 "launch.roofline", "launch.dryrun", "launch.collectives"):
         assert "repro_torch." + name in mods
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -131,10 +131,47 @@ def test_split_microbatches_matches_jax():
         tts.split_microbatches({"tokens": torch.zeros(3, 4)}, 2)
 
 
-def test_train_step_refuses_a_mesh():
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh of a fake one-rank world."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                             "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_train_step_refuses_a_mesh(one_rank_mesh):
+    """A mesh, refused before the distributed slice, is accepted: on a
+    (1, 1) mesh two steps give the mesh-less losses, norms and parameters
+    to the bit.  The compressed recipe's ``ef`` keys are JAX's."""
     cfg, tcfg = configs("starcoder2-3b")
-    with pytest.raises(NotImplementedError, match="one device"):
-        tts.make_train_step(tcfg, TRecipe(), object(), topt.AdamWConfig())
+    opt = topt.AdamWConfig(**OPT)
+    pipe = pipeline(cfg, 4, 32, seed=1)
+    out = []
+    for mesh in (None, one_rank_mesh):
+        state = _torch_state(tcfg, perturbed_tree(cfg), TRecipe(), opt)
+        if mesh is not None:
+            state = tts.shard_state(state, tcfg, TRecipe(), mesh, "float32")
+        step = tts.make_train_step(tcfg, TRecipe(), mesh, opt)
+        ms = []
+        for i in range(2):
+            p, o, m = step(state["params"], state["opt_state"],
+                           {k: torch.as_tensor(v)
+                            for k, v in pipe.batch_for_step(i).items()})
+            state = {"params": p, "opt_state": o}
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        out.append((ms, {k: v.full_tensor() if mesh is not None else v
+                         for k, v in flat(state["params"]).items()}))
+    assert out[1][0] == out[0][0]
+    for k, v in out[0][1].items():
+        assert torch.equal(out[1][1][k], v), k
     tree = perturbed_tree(cfg)
     state = tts.init_opt_state(convert.params_from_jax(tree, device="cpu"),
                                tcfg, TRecipe(compress_pod_grads=True),
