@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) through CAM's main path,
 CAM's join layer, CAM's online layers (serving sketch, sharded fleet, write
-path), the LM serving path of every model family, LM training and the
-multi-device training path on one NVIDIA GPU, and hold its six CUDA
-kernels against their plain versions.
+path), the paper's experiment scripts, the LM serving path of every model
+family, LM training and the multi-device training path on one NVIDIA GPU,
+and hold its six CUDA kernels against their plain versions.
 
 Run from the root of a checkout::
 
@@ -79,6 +79,24 @@ prints its last line):
    read/write mix over its keys (the caller that prices write streams).
    ``price_grid`` is timed at each path's largest table and at the write
    path's most frequent one;
+5d. the paper's experiments, through the twins of ``benchmarks/*.py`` and
+   ``examples/`` in ``repro_torch.launch`` (one ``{"phase": "paper",
+   "leg": ...}`` line a leg, counters zeroed just before each leg and
+   read just after, every ``price_grid`` call held to its plain version
+   at 1e-5 and every ``profile_grid`` call at 2e-6 of its scale):
+   ``tuning_e2e`` — Figs 9/10 (``bench_tuning_e2e``) at the paper's
+   setup with phase 3's cut (the paper's four budgets scaled by the same
+   1/10, cuts of queries or budgets in ``reduced``), each budget's PGM and
+   RMI QPS gain beside the paper's 1.17x and 1.66x, seconds by step, and
+   every tune rerun through the host executor with identical decisions;
+   ``engine`` and ``profile_grid`` — the device-executor benchmarks at
+   full size, their equivalence gates held and their >= 2x verdicts
+   recorded; ``che`` — ``bench_kernels`` at 200,000 pages, one
+   ``che_solve`` launch a solve, T within 1e-4 of ``che_solve_ref``;
+   ``examples`` — ``quickstart`` and ``tune_pgm`` at their default sizes,
+   every tune and estimate rerun through the host executor; and
+   ``paper_tables`` — Tables I, II, IV and V, Figs 5, 7 and 8 and the grid
+   benchmark at ``benchmarks/run.py --smoke``'s sizes;
 6. the serving path: yi-34b at full width and depth (bf16 weights from a
    seeded generator, all 60 layers), batch 4, a 1,024-token prompt, 32
    greedy tokens under ``Recipe(attn_impl="pallas")`` — prefill through
@@ -157,12 +175,13 @@ included: what a caller pays where launches, not the device, set the pace.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3,
-5, 5b, 5c, 6, 7, 8 and 9 (a gloo world, no dry runs) on the CPU (6 to 8 on ``reduced`` configs, 8 at 4 x
-128 tokens with train_lm's ``--smoke`` as its Supervisor leg, whose loss
-is recorded, not gated; the join's outer
-stream, buffer and tree scaled from ``--keys`` by the same ratios; 5c at
-the benchmarks' ``--smoke`` sizes, its scale leg on ``--keys``) at a
-smaller ``--keys``/``--queries`` and exits non-zero without a result.
+5, 5b, 5c, 5d, 6, 7, 8 and 9 (a gloo world, no dry runs) on the CPU (6 to
+8 on ``reduced`` configs, 8 at 4 x 128 tokens with train_lm's ``--smoke``
+as its Supervisor leg, whose loss is recorded, not gated; the join's
+outer stream, buffer and tree scaled from ``--keys`` by the same ratios;
+5c and 5d at the benchmarks' ``--smoke`` sizes, 5c's scale leg on
+``--keys``) at a smaller ``--keys``/``--queries`` and exits non-zero
+without a result.
 """
 from __future__ import annotations
 
@@ -515,12 +534,13 @@ def synthetic_profile(torch, np, tprof, dev, k, q, num_pages, c_ipp,
 class Recorder:
     """Keeps, per kernel variant, the main path call with the most work —
     the shapes phase 4 holds each kernel to — and, with ``keep_all``,
-    every ``price_grid`` call in order."""
+    every ``price_grid`` and ``profile_grid`` call in order."""
 
     def __init__(self, keep_all: bool = False):
         self.price = {}
         self.profile = None
         self.price_calls = [] if keep_all else None
+        self.profile_calls = [] if keep_all else None
 
     def install(self, tpg, tprof):
         real_price, real_profile = tpg.price_grid, tprof.profile_grid
@@ -541,6 +561,8 @@ class Recorder:
             size = call["keys"].numel()
             if self.profile is None or size > self.profile[0]:
                 self.profile = (size, call)
+            if self.profile_calls is not None:
+                self.profile_calls.append(call)
             return real_profile(*a, **kw)
 
         tpg.price_grid, tprof.profile_grid = price, profile
@@ -549,23 +571,26 @@ class Recorder:
 
 
 class PhaseClock:
-    """Wall seconds of the profile and price halves of every session call
-    (each ends in a device synchronize, so device time is included)."""
+    """Wall seconds and calls of wrapped callables by label (each call ends
+    in a device synchronize, so device time is included; nested labels
+    overlap): the main path's profile and price halves, 5d's steps."""
 
-    def __init__(self, torch, sync):
-        self.torch, self.sync = torch, sync
-        self.seconds = {"profile": 0.0, "price": 0.0}
+    def __init__(self, sync):
+        self.sync, self.seconds, self.calls = sync, {}, {}
 
-    def wrap(self, owner, name, phase):
+    def wrap(self, owner, name, label):
         real = getattr(owner, name)
         clock = self
 
         def timed(*a, **kw):
             t0 = time.perf_counter()
-            out = real(*a, **kw)
-            clock.sync()
-            clock.seconds[phase] += time.perf_counter() - t0
-            return out
+            try:
+                return real(*a, **kw)
+            finally:
+                clock.sync()
+                clock.seconds[label] = (clock.seconds.get(label, 0.0)
+                                        + time.perf_counter() - t0)
+                clock.calls[label] = clock.calls.get(label, 0) + 1
 
         setattr(owner, name, timed)
         return lambda: setattr(owner, name, real)
@@ -651,18 +676,26 @@ def mixed_candidates(pgm):
             for e in DEFAULT_EPS_GRID]
 
 
+def tune_cells_dh(name, got, want):
+    """Two tunes of one table: the same knobs and capacities cell by cell;
+    returns the largest |dh| between their cells."""
+    dh = 0.0
+    check(set(got.table) == set(want.table), f"{name}: knob sets differ")
+    for kn, cells in got.table.items():
+        for a, b in zip(cells, want.table[kn]):
+            check(a.capacity_pages == b.capacity_pages,
+                  f"{name} {kn}: capacities differ")
+            dh = max(dh, abs(a.hit_rate - b.hit_rate))
+    return dh
+
+
 def compare_tunes(dev, host, tol_h):
     """Device vs host executor: same winner up to objective ties, per-cell
     hit rates within ``tol_h``."""
     worst = 0.0
     for name in ("pgm", "rmi", "multi"):
         a, b = dev[name], host[name]
-        check(set(a.table) == set(b.table), f"{name}: knob sets differ")
-        for kn, cells in a.table.items():
-            for ca, cb in zip(cells, b.table[kn]):
-                check(ca.capacity_pages == cb.capacity_pages,
-                      f"{name} {kn}: capacities differ")
-                worst = max(worst, abs(ca.hit_rate - cb.hit_rate))
+        worst = max(worst, tune_cells_dh(name, a, b))
         if (a.best, a.split) != (b.best, b.split):
             check(abs(a.objective_value - b.objective_value)
                   <= 1e-5 * abs(b.objective_value) + tol_h * max(
@@ -2474,19 +2507,58 @@ def drive(mods, fn, on_card):
     version on CPU tensors), which the card picks by itself."""
     from repro_torch.engine.table import PricingEngine
 
-    recorder, log = Recorder(keep_all=True), PriceLog()
-    undo = [recorder.install(mods["price_grid"], mods["profile_grid"]),
-            log.install(PricingEngine)]
+    log = PriceLog()
+    out, launches, recorder, seconds, _ = drive_leg(
+        mods, fn, on_card, [lambda: log.install(PricingEngine)])
+    return out, launches, recorder.price_calls, log.calls, seconds
+
+
+def drive_leg(mods, fn, on_card, wraps=()):
+    """Run one path with its launch counters zeroed just before and read
+    just after; every kernel call recorded, ``wraps`` (callables returning
+    an undo) installed for the run, its stdout kept."""
+    recorder = Recorder(keep_all=True)
+    undo = [recorder.install(mods["price_grid"], mods["profile_grid"])]
+    undo += [w() for w in wraps]
+    buf = io.StringIO()
     zero_counters(mods)
     t0 = time.perf_counter()
     try:
-        with executor(None if on_card else "device"):
+        with executor(None if on_card else "device"), \
+                contextlib.redirect_stdout(buf):
             out = fn()
     finally:
         for u in reversed(undo):
             u()
     seconds = time.perf_counter() - t0
-    return out, read_counters(mods), recorder.price_calls, log.calls, seconds
+    return out, read_counters(mods), recorder, seconds, buf.getvalue()
+
+
+def hold_kernel_calls(mods, recorder):
+    """Every recorded ``price_grid`` call against its plain version (1e-5
+    on h) and every ``profile_grid`` call against its own (2e-6 of the
+    histogram's scale, phase 4's bound; the bit-equal ones counted).
+    Launches made here are not counted."""
+    tpg, tprof = mods["price_grid"], mods["profile_grid"]
+    price_err = max((compare_price(tpg, call, flags, 1e-5)
+                     for call, flags in recorder.price_calls), default=0.0)
+    prof = [compare_profile(tprof, call, exact=False)
+            for call in recorder.profile_calls]
+    return {"price_grid_calls": len(recorder.price_calls),
+            "price_grid_max_abs_err": price_err,
+            "profile_grid_calls": len(prof),
+            "profile_grid_max_abs_err": max(prof, default=0.0),
+            "profile_grid_bit_equal_calls": sum(e == 0.0 for e in prof)}
+
+
+def hold_launches(name, launches, expect, on_card):
+    """On the card: every kernel of ``expect`` launched, no other."""
+    if on_card:
+        for k in expect:
+            check(launches[k] > 0, f"{name}: {k} never launched")
+        others = {k: v for k, v in launches.items() if k not in expect}
+        check(not any(others.values()),
+              f"{name} launched other kernels: {others}")
 
 
 def rerun_on_host(mods, fn):
@@ -2539,12 +2611,8 @@ def hold_path(name, tpg, launches, price_calls, engine_calls, on_card):
     err = max((compare_price(tpg, call, flags, 1e-5)
                for call, flags in price_calls), default=0.0)
     executors = sorted({sol.executor for _, _, sol in engine_calls})
+    hold_launches(f"the {name} path", launches, ("price_grid",), on_card)
     if on_card:
-        check(launches["price_grid"] > 0,
-              f"price_grid never launched on the {name} path")
-        others = {k: v for k, v in launches.items() if k != "price_grid"}
-        check(not any(others.values()),
-              f"{name} path launched other kernels: {others}")
         check(executors == ["device"],
               f"{name} path priced through {executors}, not the kernel")
     return err, executors
@@ -2912,6 +2980,339 @@ def online_section(args, torch, np, mods, world, pgm, sync, on_card):
 
 
 # ---------------------------------------------------------------------------
+# 5d. The paper's experiments: the twins of benchmarks/*.py and examples/
+# ---------------------------------------------------------------------------
+
+#: The paper's Figs 9/10 claims: CAM's replayed QPS over multicriteria-PGM
+#: (PGM) and over CDFShop (RMI).
+PAPER_QPS_GAIN = {"pgm": 1.17, "rmi": 1.66}
+#: Cuts of the tuning_e2e leg beyond phase 3's 1/10 keys.  At the paper's
+#: 1M queries and four budgets the leg took 285.7 s on an H100 host, 251.7
+#: s of it index builds (RadixSpline's corridor is a Python loop over
+#: every key); past ~180 s the queries are cut first, then a budget.
+E2E_QUERIES = 200_000          # at most; the paper's 1M is ``--queries``
+E2E_DROP_BUDGETS_MB = (160,)   # paper budgets (MiB, before scaling) left out
+CHE_PAGES = 200_000        # benchmarks/bench_kernels.py's default
+#: ``benchmarks/run.py --smoke``'s sizes, the paper_tables leg's
+PAPER_TABLES = ("point_accuracy", "range_accuracy", "io_size", "covariance",
+                "fetch_strategy", "pgm_tuning_curve", "rmi_tuning_curve",
+                "estimate_grid")
+
+
+class SessionLog:
+    """The outermost calls of some session methods in a leg (method,
+    object, arguments, result), so each can be rerun through the host
+    executor; a call made inside another logged call is not logged."""
+
+    def __init__(self):
+        self.calls, self.depth = [], 0
+
+    def install(self, owner, name):
+        real, log = getattr(owner, name), self
+
+        def call(obj, *a, **kw):
+            log.depth += 1
+            try:
+                out = real(obj, *a, **kw)
+            finally:
+                log.depth -= 1
+            if log.depth == 0:
+                log.calls.append((name, real, obj, a, kw, out))
+            return out
+
+        setattr(owner, name, call)
+        return lambda: setattr(owner, name, real)
+
+
+def rerun_on_host_executor(name, log):
+    """Each logged tune or estimate again through the host executor on the
+    same device: a tune's (best, split, capacity_pages) identical and its
+    est_io within rtol 1e-5 or 2e-6 E[DAC]; an estimate's I/O the same
+    way; every priced cell's h within 1e-5.  Returns (calls, max |dh|,
+    seconds)."""
+    dh = 0.0
+    t0 = time.perf_counter()
+    for meth, real, obj, a, kw, got in log.calls:
+        with executor("host"), contextlib.redirect_stdout(io.StringIO()):
+            want = real(obj, *a, **kw)
+        if meth == "tune":
+            check((got.best, got.split, got.capacity_pages)
+                  == (want.best, want.split, want.capacity_pages),
+                  f"{name} {got.family}/{got.tuner}: {got.best} "
+                  f"{got.split} {got.capacity_pages} on the card vs "
+                  f"{want.best} {want.split} {want.capacity_pages} on the "
+                  "host executor")
+            if want.estimates:
+                dac = want.estimates[want.best_knob].dac
+                check(io_close(got.est_io, want.est_io, dac),
+                      f"{name} {got.family}: est_io {got.est_io} vs "
+                      f"{want.est_io} on the host executor")
+                dh = max(dh, tune_cells_dh(name, got, want))
+        else:
+            check(io_close(got.io_per_query, want.io_per_query, want.dac),
+                  f"{name}: estimate {got.io_per_query} vs "
+                  f"{want.io_per_query} on the host executor")
+            dh = max(dh, abs(got.hit_rate - want.hit_rate))
+    check(dh <= 1e-5, f"{name}: device vs host executor max |dh| {dh:.3g}")
+    return len(log.calls), dh, time.perf_counter() - t0
+
+
+def tuning_e2e_leg(args, np, mods, sync, on_card):
+    """Figs 9/10 through ``repro_torch.launch.bench_tuning_e2e`` at the
+    paper's setup with phase 3's 1/10 cut: CAM against multicriteria-PGM
+    and CDFShop per budget, RadixSpline joint against eps-only, the
+    batched mixed-eps A/B."""
+    from repro_torch.configs.cam_paper import PAPER
+    from repro_torch.index import pgm as pgm_mod
+    from repro_torch.index import radixspline as rs_mod
+    from repro_torch.index import rmi as rmi_mod
+    from repro_torch.launch import bench_tuning_e2e as bte
+    from repro_torch.tuning.session import TuningSession
+
+    if on_card:
+        n, q = args.keys, min(args.queries, E2E_QUERIES)
+        scale = n / PAPER.keys_per_dataset
+        budgets = tuple(round(b * scale, 6) for b in PAPER.tuning_budgets_mb
+                        if b not in E2E_DROP_BUDGETS_MB)
+        reduced = [f"keys {PAPER.keys_per_dataset:,} -> {n:,} (books, "
+                   "phase 3's cut)",
+                   f"budgets {list(PAPER.tuning_budgets_mb)} MiB x "
+                   f"{scale:g} -> {list(budgets)} MiB (the same ratio)"]
+        if q != PAPER.point_queries:
+            reduced.append(f"queries {PAPER.point_queries:,} -> {q:,}")
+        if E2E_DROP_BUDGETS_MB:
+            reduced.append(f"budgets {list(E2E_DROP_BUDGETS_MB)} MiB (paper "
+                           "scale) left out")
+    else:
+        n, q, budgets = 200_000, 20_000, (0.5, 1.0)     # the twin's --smoke
+        reduced = ["the twin's --smoke sizes (CPU rehearsal)"]
+    clock, log = PhaseClock(sync), SessionLog()
+    # the log wraps the real tune, so its host reruns stay off the clock
+    wraps = [lambda: log.install(TuningSession, "tune"),
+             lambda: clock.wrap(TuningSession, "tune", "tunes"),
+             lambda: clock.wrap(pgm_mod, "build_pgm", "builds_pgm"),
+             lambda: clock.wrap(rmi_mod, "build_rmi", "builds_rmi"),
+             lambda: clock.wrap(rs_mod, "build_radixspline",
+                                "builds_radixspline"),
+             lambda: clock.wrap(bte, "simulate_point_queries", "replays"),
+             lambda: clock.wrap(bte, "_mixed_eps_ab", "mixed_eps_ab")]
+    rec, launches, recorder, secs, _ = drive_leg(
+        mods, lambda: bte.run(n=n, n_queries=q, budgets_mb=budgets,
+                              torch_device=args.device), on_card, wraps)
+    t0 = time.perf_counter()
+    held = hold_kernel_calls(mods, recorder)
+    tunes, dh, host_s = rerun_on_host_executor("tuning_e2e", log)
+    budgets_out = {}
+    for mb, entry in rec["budgets"].items():
+        row = {fam: {**entry[fam], "paper_qps_gain": PAPER_QPS_GAIN[fam]}
+               for fam in ("pgm", "rmi")}
+        if "radixspline_joint" in entry:
+            row["radixspline_joint"] = entry["radixspline_joint"]
+        budgets_out[mb] = row
+    out = {"phase": "paper", "leg": "tuning_e2e", "keys": n, "queries": q,
+           "budgets_mb": list(budgets), "reduced": reduced,
+           "budgets": budgets_out,
+           "mixed_eps_kernel": rec["mixed_eps_kernel"],
+           "seconds": {"leg": secs, **clock.seconds,
+                       "host_executor_rerun": host_s,
+                       "checks": time.perf_counter() - t0},
+           "calls": clock.calls, "launches": launches, "tunes": tunes,
+           "max_abs_dh_vs_host": dh, **held}
+    emit(out)                      # the leg's numbers before its checks
+    check(held["price_grid_max_abs_err"] <= 1e-5,
+          f"tuning_e2e price_grid vs plain {held['price_grid_max_abs_err']}")
+    hold_launches("tuning_e2e", launches, ("price_grid", "profile_grid"),
+                  on_card)
+    check(all(np.isfinite(e[f]["qps_gain"]) for e in rec["budgets"].values()
+              for f in ("pgm", "rmi")), "tuning_e2e: non-finite QPS gain")
+    return launches
+
+
+def device_executor_leg(args, mods, on_card, name):
+    """``bench_engine`` or ``bench_profile_grid`` at its full size: its
+    equivalence gates asserted (the twin raises otherwise), its >= 2x
+    verdict recorded, every kernel call held to its plain version."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.launch.bench_{name}")
+    rec, launches, recorder, secs, _ = drive_leg(
+        mods, lambda: mod.run(smoke=not on_card, seed=args.seed,
+                              torch_device=args.device), on_card)
+    held = hold_kernel_calls(mods, recorder)
+    out = {"phase": "paper", "leg": name, "record": rec, "seconds": secs,
+           "launches": launches, **held}
+    emit(out)
+    equivalence = {k: v for k, v in rec["gates"].items() if "warm" not in k}
+    check(all(equivalence.values()), f"{name}: gates {rec['gates']}")
+    check(held["price_grid_max_abs_err"] <= 1e-5,
+          f"{name} price_grid vs plain {held['price_grid_max_abs_err']}")
+    hold_launches(name, launches, (name if name == "profile_grid"
+                                   else "price_grid",), on_card)
+    return launches
+
+
+def che_leg(args, mods, on_card):
+    """``bench_kernels`` (the Che solver) at 200,000 pages: one
+    ``che_solve`` launch a solve and no ``che_sums`` launch; T held to
+    ``che_solve_ref`` on the same tensors (1e-4 relative)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import che_solve_ref
+    from repro_torch.launch import bench_kernels as bk
+
+    solves = []
+
+    def wrap():
+        real = ops.che_solve
+
+        def solve(probs, capacity, **kw):
+            t = real(probs, capacity, **kw)
+            solves.append((probs, capacity, kw, t))
+            return t
+
+        ops.che_solve = solve
+        return lambda: setattr(ops, "che_solve", real)
+
+    pages = CHE_PAGES if on_card else 50_000
+    rec, launches, _, secs, _ = drive_leg(
+        mods, lambda: bk.run(n_pages=pages, torch_device=args.device),
+        on_card, [wrap])
+    t_err = 0.0
+    for p, c, kw, t in solves:
+        ref = float(che_solve_ref(p, c, **kw))
+        t_err = max(t_err, abs(float(t) - ref) / ref)
+    out = {"phase": "paper", "leg": "che", "record": rec, "seconds": secs,
+           "solves": len(solves), "launches": launches,
+           "t_max_rel_err_vs_plain": t_err}
+    emit(out)
+    check(t_err <= CHE_T_RTOL, f"che leg: T {t_err:.3g} from che_solve_ref")
+    check(rec["consistency_err"] <= 1e-4,
+          f"che leg: consistency {rec['consistency_err']:.3g}")
+    if on_card:
+        check(launches["che_solve"] == len(solves) > 0,
+              f"che leg: {launches['che_solve']} launches for "
+              f"{len(solves)} solves")
+        hold_launches("che", launches, ("che_solve",), on_card)
+    return launches
+
+
+def examples_leg(args, mods, on_card):
+    """``quickstart`` and ``tune_pgm`` at their default sizes: each
+    family's q-error against replay, the CAM and baseline QPS; every tune
+    and estimate rerun through the host executor with identical
+    decisions."""
+    from repro_torch.core.session import CostSession
+    from repro_torch.launch import quickstart, tune_pgm
+    from repro_torch.tuning.session import TuningSession
+
+    log = SessionLog()
+    wraps = [lambda: log.install(TuningSession, "tune"),
+             lambda: log.install(CostSession, "estimate")]
+    smoke = not on_card
+    (quick, tune), launches, recorder, secs, printed = drive_leg(
+        mods, lambda: (quickstart.run(smoke, args.device),
+                       tune_pgm.run(smoke, args.device)), on_card, wraps)
+    held = hold_kernel_calls(mods, recorder)
+    calls, dh, host_s = rerun_on_host_executor("examples", log)
+    out = {"phase": "paper", "leg": "examples",
+           "quickstart": {f: {k: r[k] for k in ("est_io", "replay_io",
+                                                  "q_error", "hit_rate",
+                                                  "capacity_pages")}
+                          for f, r in quick["families"].items()},
+           "tune_pgm": {"cam": {k: tune["cam"][k] for k in (
+                            "eps", "split", "capacity_pages", "est_io",
+                            "tuning_seconds")},
+                        "multicriteria_eps": tune["multicriteria_eps"],
+                        "replayed": tune["replayed"],
+                        "radixspline": tune["radixspline"]},
+           "sizes": {"quickstart": [quick["n"], quick["queries"]],
+                     "tune_pgm": [tune["n"], tune["queries"]]},
+           "seconds": {"leg": secs, "host_executor_rerun": host_s},
+           "launches": launches, "session_calls": calls,
+           "max_abs_dh_vs_host": dh, **held}
+    emit(out)
+    check(held["price_grid_max_abs_err"] <= 1e-5,
+          f"examples price_grid vs plain {held['price_grid_max_abs_err']}")
+    hold_launches("examples", launches, ("price_grid",), on_card)
+    return launches
+
+
+def paper_tables_leg(args, mods, on_card):
+    """The accuracy tables, Figs 5, 7 and 8 and the grid benchmark at
+    ``benchmarks/run.py --smoke``'s sizes: mean q-errors and seconds,
+    every kernel call held to its plain version."""
+    import importlib
+
+    from repro_torch.launch.bench_common import SMOKE_KWARGS, smoke_kwargs
+
+    def run_all():
+        out = {}
+        for name in PAPER_TABLES:
+            mod = importlib.import_module(f"repro_torch.launch.bench_{name}")
+            t0 = time.perf_counter()
+            rec = mod.run(**smoke_kwargs(mod.run), torch_device=args.device)
+            out[name] = (rec, time.perf_counter() - t0)
+        return out
+
+    recs, launches, recorder, secs, _ = drive_leg(mods, run_all, on_card)
+    held = hold_kernel_calls(mods, recorder)
+    summary = {}
+    for name in ("point_accuracy", "range_accuracy"):
+        rows = recs[name][0]["rows"]
+        summary[name] = {tag: sum(r["mean_qerr"] for k, r in rows.items()
+                                  if k.endswith("/" + tag))
+                         / sum(k.endswith("/" + tag) for k in rows)
+                         for tag in ("CAM-10", "CAM-100", "Replay-10", "LPM")}
+    for name in ("pgm_tuning_curve", "rmi_tuning_curve"):
+        summary[name] = {k: {f: c[f] for f in c
+                             if f.endswith("star_cam")
+                             or f.endswith("star_actual")
+                             or f == "curve_qerr"}
+                         for k, c in recs[name][0]["curves"].items()}
+    eg = recs["estimate_grid"][0]
+    summary["estimate_grid"] = {k: eg[k] for k in (
+        "n_candidates", "best_eps", "speedup_warm",
+        "max_rel_io_diff_vs_legacy")}
+    summary["io_size"] = recs["io_size"][0]["rows"]
+    out = {"phase": "paper", "leg": "paper_tables",
+           "sizes": {k: SMOKE_KWARGS[k] for k in ("n", "n_queries")},
+           "summary": summary,
+           "seconds": {"leg": secs, **{k: s for k, (_, s) in recs.items()}},
+           "launches": launches, **held}
+    emit(out)
+    check(held["price_grid_max_abs_err"] <= 1e-5,
+          f"paper_tables price_grid vs plain "
+          f"{held['price_grid_max_abs_err']}")
+    check(eg["max_rel_io_diff_vs_legacy"] <= 1e-5,
+          f"estimate_grid vs the legacy loop "
+          f"{eg['max_rel_io_diff_vs_legacy']:.3g}")
+    hold_launches("paper_tables", launches, ("price_grid", "profile_grid"),
+                  on_card)
+    return launches
+
+
+def paper_section(args, np, mods, sync, on_card):
+    """Phase 5d's legs; returns their summed launches."""
+    from repro_torch.launch import bench_common
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name, _, _ in COUNTERS}
+    legs = (lambda: tuning_e2e_leg(args, np, mods, sync, on_card),
+            lambda: device_executor_leg(args, mods, on_card, "engine"),
+            lambda: device_executor_leg(args, mods, on_card, "profile_grid"),
+            lambda: che_leg(args, mods, on_card),
+            lambda: examples_leg(args, mods, on_card),
+            lambda: paper_tables_leg(args, mods, on_card))
+    for leg in legs:
+        for k, v in leg().items():
+            total[k] += v
+    bench_common._DATA_CACHE.clear()
+    bench_common._PGM_CACHE.clear()
+    emit({"phase": "paper_done", "seconds": time.perf_counter() - t0,
+          "launches": total})
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -3002,7 +3403,7 @@ def main(argv=None) -> int:
     pgm, rmi, t_sizes = size_model_builds(world)
     recorder = Recorder()
     undo = [recorder.install(tpg, tprof)]
-    clock = PhaseClock(torch, sync)
+    clock = PhaseClock(sync)
     from repro_torch.core.session import CostSession
     from repro_torch.engine.table import PricingEngine
     undo.append(clock.wrap(CostSession, "_profile_batch", "profile"))
@@ -3017,8 +3418,8 @@ def main(argv=None) -> int:
     for u in reversed(undo):
         u()
     main_phases = dict(world["times"], size_model_builds=t_sizes,
-                       profile=clock.seconds["profile"],
-                       price=clock.seconds["price"], main_path=t_main)
+                       profile=clock.seconds.get("profile", 0.0),
+                       price=clock.seconds.get("price", 0.0), main_path=t_main)
     emit({"phase": "main_path", "keys": args.keys, "queries": args.queries,
           "budget_bytes": world["budget"], "seconds": main_phases,
           "launches": launches, "results": summarize(results)})
@@ -3080,6 +3481,9 @@ def main(argv=None) -> int:
     online_launches = online_section(args, torch, np, mods, world, pgm,
                                      sync, on_card)
 
+    # ---- 5d. the paper's experiments: the twins of its scripts -------------
+    paper_launches = paper_section(args, np, mods, sync, on_card)
+
     # ---- 6. the serving path: yi-34b at full width -------------------------
     del world, pgm, rmi, recorder, results, host, che_operands
     gc.collect()
@@ -3128,6 +3532,7 @@ def main(argv=None) -> int:
     for row in kernels:
         row["join_launches"] = join_launches[row["name"]]
         row["online_launches"] = online_launches[row["name"]]
+        row["paper_launches"] = paper_launches[row["name"]]
         row["families_launches"] = family_launches[row["name"]]
         row["train_launches"] = train_launches[row["name"]]
         row["distributed_launches"] = dist_launches[row["name"]]

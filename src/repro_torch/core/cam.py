@@ -16,6 +16,8 @@ golden equivalence; new code should use the index-agnostic
 :class:`repro_torch.core.session.CostSession` with a
 :class:`repro_torch.core.workload.Workload` — which also adds batched knob-grid
 estimation (``estimate_grid``) these one-shot functions cannot express.
+The shims take the JAX package's arguments plus ``torch_device``: the card
+(``"cuda"``, the sessions' default) unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -85,10 +87,12 @@ def sample_workload(arr: np.ndarray, rate: float, seed: int = 0) -> np.ndarray:
     return arr[subsample_indices(arr.shape[0], rate, seed)]
 
 
-def _session(geom: CamGeometry, memory_budget_bytes: float, policy: str):
+def _session(geom: CamGeometry, memory_budget_bytes: float, policy: str,
+             torch_device: str):
     from repro_torch.core.session import CostSession, System
 
-    return CostSession(System(geom, memory_budget_bytes, policy))
+    return CostSession(System(geom, memory_budget_bytes, policy,
+                              torch_device=torch_device))
 
 
 def estimate_point_io(
@@ -101,6 +105,7 @@ def estimate_point_io(
     policy: str = "lru",
     sample_rate: float = 1.0,
     seed: int = 0,
+    torch_device: str = "cuda",
 ) -> CamEstimate:
     """Algorithm 1 for point workloads (deprecated shim).
 
@@ -112,7 +117,7 @@ def estimate_point_io(
     from repro_torch.core.session import UniformEpsModel
     from repro_torch.core.workload import Workload
 
-    return _session(geom, memory_budget_bytes, policy).estimate(
+    return _session(geom, memory_budget_bytes, policy, torch_device).estimate(
         UniformEpsModel(int(eps), int(n), float(index_bytes)),
         Workload.point(positions, n=int(n)),
         sample_rate=sample_rate, seed=seed)
@@ -129,13 +134,14 @@ def estimate_range_io(
     policy: str = "lru",
     sample_rate: float = 1.0,
     seed: int = 0,
+    torch_device: str = "cuda",
 ) -> CamEstimate:
     """Algorithm 1 for range workloads (§IV-B) (deprecated shim)."""
     _deprecated("estimate_range_io")
     from repro_torch.core.session import UniformEpsModel
     from repro_torch.core.workload import Workload
 
-    return _session(geom, memory_budget_bytes, policy).estimate(
+    return _session(geom, memory_budget_bytes, policy, torch_device).estimate(
         UniformEpsModel(int(eps), int(n), float(index_bytes)),
         Workload.range_scan(lo_positions, hi_positions, n=int(n)),
         sample_rate=sample_rate, seed=seed)
@@ -149,6 +155,7 @@ def estimate_sorted_io(
     geom: CamGeometry,
     memory_budget_bytes: float,
     index_bytes: float,
+    torch_device: str = "cuda",
 ) -> CamEstimate:
     """Sorted probe streams (joins): Theorem III.1 closed form under LRU.
 
@@ -162,6 +169,6 @@ def estimate_sorted_io(
     from repro_torch.core.session import UniformEpsModel
     from repro_torch.core.workload import Workload
 
-    return _session(geom, memory_budget_bytes, "lru").estimate(
+    return _session(geom, memory_budget_bytes, "lru", torch_device).estimate(
         UniformEpsModel(int(eps), int(n), float(index_bytes)),
         Workload.sorted_stream(window_lo, window_hi, n=int(n)))

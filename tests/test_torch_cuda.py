@@ -1059,3 +1059,88 @@ def test_attention_kernels_refuse_dtensors_on_the_card(dev, card_mesh):
         lengths = torch.full((1,), 100, device=dev)
         with pytest.raises(ValueError, match="not DTensors"):
             ops.decode_attention(q[:, :1], k, v, lengths)
+
+
+# ---------------------------------------------------------------------------
+# The paper-experiment twins and the tuner shims on the card
+# ---------------------------------------------------------------------------
+
+#: twin -> the CAM kernels its ``--smoke`` run must launch (a single
+#: ``CostSession.estimate`` prices with torch ops on the card, as JAX's
+#: prices with jnp: quickstart and the accuracy tables launch none)
+PAPER_TWIN_KERNELS = {
+    "bench_tuning_e2e": ("price_grid", "profile_grid"),
+    "quickstart": (),
+    "tune_pgm": ("price_grid",),
+    "bench_engine": ("price_grid",),
+    "bench_profile_grid": ("profile_grid",),
+    "bench_estimate_grid": ("price_grid", "profile_grid"),
+    "bench_pgm_tuning_curve": ("price_grid",),
+    "bench_rmi_tuning_curve": ("price_grid", "profile_grid"),
+    "bench_point_accuracy": (),
+    "bench_range_accuracy": (),
+    "bench_io_size": (),
+    "bench_covariance": (),
+    "bench_fetch_strategy": (),
+    "bench_kernels": ("che_solve",),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAPER_TWIN_KERNELS))
+def test_paper_twin_smoke_on_the_card(dev, name, capsys):
+    """Each twin's ``--smoke`` run on the card: its gates hold (the twins
+    raise otherwise), its record says where it ran, and it launched the
+    kernels of its path (the device executor is the card's default)."""
+    import importlib
+
+    from repro_torch.kernels import che_solver as tche
+
+    mod = importlib.import_module(f"repro_torch.launch.{name}")
+    count = {"price_grid": lambda: tpg.launches,
+             "profile_grid": lambda: tprof.launches,
+             "che_solve": lambda: tche.solve_launches}
+    before = {k: f() for k, f in count.items()}
+    record = mod.main(["--smoke", "--device", "cuda"])
+    torch.cuda.synchronize()
+    capsys.readouterr()
+    assert record["torch_device"] == "cuda"
+    for kernel in PAPER_TWIN_KERNELS[name]:
+        assert count[kernel]() > before[kernel], kernel
+    if "gates" in record:
+        assert all(v for k, v in record["gates"].items() if "warm" not in k)
+        assert isinstance(record["gates"]["fused_2.0x_warm"], bool)
+    if name == "bench_kernels":
+        assert count["che_solve"]() - before["che_solve"] == 2
+        assert record["consistency_err"] <= 1e-4
+
+
+def test_tuner_shims_on_the_card_match_the_cpu(dev):
+    """The deprecated shims on the card choose what they choose on the CPU,
+    with I/O within rtol 1e-5 or 2e-6 E[DAC]."""
+    import warnings
+
+    from repro_torch.core.cam import CamGeometry
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.data.workloads import WorkloadSpec, point_workload
+    from repro_torch.tuning import pgm_tuner, rmi_tuner
+
+    keys = make_dataset("books", 200_000, seed=1)
+    qk, qpos = point_workload(keys, 20_000, WorkloadSpec("w4", seed=3))
+    geom, budget = CamGeometry(), 1 << 20
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for where in ("cuda", "cpu"):
+            out[where] = (
+                pgm_tuner.cam_tune_pgm(keys, qpos, budget, geom, "lfu",
+                                       eps_grid=(16, 64, 256),
+                                       torch_device=where),
+                rmi_tuner.cam_tune_rmi(keys, qpos, qk, budget, geom, "lru",
+                                       branch_grid=(256, 1024, 4096),
+                                       torch_device=where))
+    for got, want, knob in zip(out["cuda"], out["cpu"],
+                               ("best_eps", "best_branch")):
+        assert getattr(got, knob) == getattr(want, knob)
+        best = want.estimates[getattr(want, knob)]
+        assert abs(got.est_io - want.est_io) <= max(
+            1e-5 * want.est_io, 2e-6 * best.dac)

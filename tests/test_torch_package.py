@@ -46,7 +46,18 @@ def test_port_imports_without_jax_or_repro():
                  "launch.train", "launch.train_lm",
                  "distributed.compression", "distributed.elastic",
                  "launch.mesh", "launch.cells", "launch.analytic",
-                 "launch.roofline", "launch.dryrun", "launch.collectives"):
+                 "launch.roofline", "launch.dryrun", "launch.collectives",
+                 "tuning.pgm_tuner", "tuning.rmi_tuner", "tuning.rs_tuner",
+                 "launch.bench_common", "launch.bench_tuning_e2e",
+                 "launch.quickstart", "launch.tune_pgm",
+                 "launch.bench_engine", "launch.bench_profile_grid",
+                 "launch.bench_estimate_grid",
+                 "launch.bench_pgm_tuning_curve",
+                 "launch.bench_rmi_tuning_curve",
+                 "launch.bench_point_accuracy",
+                 "launch.bench_range_accuracy", "launch.bench_io_size",
+                 "launch.bench_covariance", "launch.bench_fetch_strategy",
+                 "launch.bench_kernels", "launch.bench_run"):
         assert "repro_torch." + name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -155,3 +166,59 @@ def test_train_entry_points_default_to_the_card(monkeypatch, tmp_path):
     res = train.main(["--reduced", "--steps", "2", "--batch", "2", "--seq",
                       "16", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
     assert res["final_step"] == 2 and len(res["losses"]) == 2
+
+
+#: The twins of the paper's scripts (each ``run`` takes ``torch_device``).
+PAPER_TWINS = ("bench_tuning_e2e", "quickstart", "tune_pgm", "bench_engine",
+               "bench_profile_grid", "bench_estimate_grid",
+               "bench_pgm_tuning_curve", "bench_rmi_tuning_curve",
+               "bench_point_accuracy", "bench_range_accuracy",
+               "bench_io_size", "bench_covariance", "bench_fetch_strategy",
+               "bench_kernels")
+
+
+def test_paper_twins_and_shims_default_to_the_card(monkeypatch):
+    import importlib
+    import inspect
+
+    import numpy as np
+
+    from repro_torch.core.cam import CamGeometry
+    from repro_torch.index.rmi import build_rmi
+    from repro_torch.launch import bench_common, bench_run
+    from repro_torch.tuning import pgm_tuner, rmi_tuner, rs_tuner
+
+    keys = np.sort(np.random.default_rng(0).uniform(0, 1e6, 4096))
+    pos = np.arange(0, 4096, 7)
+    geom = CamGeometry()
+    shims = {
+        pgm_tuner.cam_tune_pgm: lambda: pgm_tuner.cam_tune_pgm(
+            keys, pos, 1 << 20, geom),
+        pgm_tuner.multicriteria_pgm_tune:
+            lambda: pgm_tuner.multicriteria_pgm_tune(keys, 1 << 20),
+        rmi_tuner.estimate_rmi_io: lambda: rmi_tuner.estimate_rmi_io(
+            build_rmi(keys, 64), pos, keys[pos], geom, 1 << 20),
+        rmi_tuner.cam_tune_rmi: lambda: rmi_tuner.cam_tune_rmi(
+            keys, pos, keys[pos], 1 << 20, geom),
+        rmi_tuner.cdfshop_tune_rmi:
+            lambda: rmi_tuner.cdfshop_tune_rmi(keys, 1 << 20),
+        rs_tuner.cam_tune_radixspline: lambda: rs_tuner.cam_tune_radixspline(
+            keys, pos, 1 << 20, geom),
+    }
+    twins = [importlib.import_module(f"repro_torch.launch.{name}")
+             for name in PAPER_TWINS]
+    for fn in [*shims, *(m.run for m in twins)]:
+        assert inspect.signature(fn).parameters[
+            "torch_device"].default == "cuda", fn.__qualname__
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn, call in shims.items():
+        with pytest.warns(DeprecationWarning), \
+                pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for mod in twins:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.run(**bench_common.smoke_kwargs(mod.run))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.main(["--smoke"])
+    # the driver reports each refusal and exits 1
+    assert bench_run.main(["--smoke", "--only", "io_size", "kernels"]) == 1
