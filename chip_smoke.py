@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) through CAM's main path,
 CAM's join layer, CAM's online layers (serving sketch, sharded fleet, write
 path), the paper's experiment scripts, the LM serving path of every model
-family, LM training and the multi-device training path on one NVIDIA GPU,
-and hold its six CUDA kernels against their plain versions.
+family, LM training and the multi-device training and serving paths on one
+NVIDIA GPU, and hold its six CUDA kernels against their plain versions.
 
 Run from the root of a checkout::
 
@@ -93,8 +93,22 @@ prints its last line):
    full size, their equivalence gates held and their >= 2x verdicts
    recorded; ``che`` — ``bench_kernels`` at 200,000 pages, one
    ``che_solve`` launch a solve, T within 1e-4 of ``che_solve_ref``;
-   ``examples`` — ``quickstart`` and ``tune_pgm`` at their default sizes,
-   every tune and estimate rerun through the host executor; and
+   ``join`` — Fig 11 (``bench_join``) at its default size (4M books keys,
+   30,000 outer probes, a 2 MiB buffer above the index, the tree's pool
+   at num_pages/5): the six outer mixtures with each
+   ``hybrid_speedup_vs_inlj`` beside the paper's 8.8x (recorded), the
+   read blends, Algorithm 2 vectorised against its loop (identical
+   segments), the three-level tree against the even split and the
+   exhaustive replay, seconds by step, every priced table repriced and
+   every choose, cost curve and tree plan rerun through the host
+   executor with identical decisions; ``examples`` — ``quickstart`` and
+   ``tune_pgm`` at their default sizes, every tune and estimate rerun
+   through the host executor, then ``hybrid_join``, ``join_tree``,
+   ``serve_adaptive``, ``shard_fleet`` and ``update_heavy`` at their
+   default sizes, each with its gates and a whole rerun through the host
+   executor (the same engine calls, h within 1e-5, decisions identical);
+   ``kv_planner`` — ``bench_kv_planner``'s five pool sizes, its errors
+   recorded, no kernel launched; and
    ``paper_tables`` — Tables I, II, IV and V, Figs 5, 7 and 8 and the grid
    benchmark at ``benchmarks/run.py --smoke``'s sizes;
 6. the serving path: yi-34b at full width and depth (bf16 weights from a
@@ -128,7 +142,9 @@ prints its last line):
    every 6).  For rwkv6 and zamba2 the chunked prefill is held to the
    stepwise decode recurrence on a 256-token prompt in float32: last
    logits within 2e-2, the first layer's (group's) states within 1e-3,
-   every layer's recorded.  phi3.5-moe (~83.7 GB of bf16 weights) does not
+   every layer's recorded; and each is served once more at full width in
+   float32, its ``pallas`` engine held to the blockwise one at 1e-4 of
+   the prefill logits' max-abs (the bf16 gates stay).  phi3.5-moe (~83.7 GB of bf16 weights) does not
    fit one card.  The attention kernels are then timed at zamba2's
    head_dim-80 shapes;
 8. training, after the families' weights are freed: starcoder2-3b at full
@@ -166,7 +182,16 @@ prints its last line):
    ``train_4k``) on the fake 256-rank (32, 8) mesh; the analytic H100
    bound of step 1's cell and the whole H100 roofline table (a
    ``distributed`` and a ``distributed_roofline_h100`` line).  No kernel
-   launches (all six counters 0).
+   launches on the training path (all six counters 0).  Then, the
+   training state freed, on the same one-rank group, ``serve_mesh``:
+   starcoder2-3b at full width and depth (bf16 seeded weights), batch 4,
+   ``--prompt-len`` tokens and ``--new-tokens`` greedy steps under
+   ``Recipe(attn_impl="pallas")``, through ``ServeEngine`` on the (data
+   1, model 1) mesh (DTensor params and cache) and mesh-less: equal
+   tokens, prefill logits within 1e-5 of their max-abs, one flash launch
+   a layer and one decode launch a layer and step in each run, every
+   mesh-run kernel call held to its plain version on its own local
+   inputs within one bf16 ulp (a ``serve_mesh`` line).
 
 Kernel times are device times: CUDA events around calls queued behind a
 spin kernel, so the host's launch rate does not enter.  Every kernel row
@@ -176,7 +201,7 @@ included: what a caller pays where launches, not the device, set the pace.
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--device cpu`` rehearses phases 3,
 5, 5b, 5c, 5d, 6, 7, 8 and 9 (a gloo world, no dry runs) on the CPU (6 to
-8 on ``reduced`` configs, 8 at 4 x 128 tokens with train_lm's ``--smoke``
+9 on ``reduced`` configs, 8 at 4 x 128 tokens with train_lm's ``--smoke``
 as its Supervisor leg, whose loss is recorded, not gated; the join's
 outer stream, buffer and tree scaled from ``--keys`` by the same ratios;
 5c and 5d at the benchmarks' ``--smoke`` sizes, 5c's scale leg on
@@ -1416,6 +1441,64 @@ def vlm_prefill_check(torch, np, cfg, params, dev, on_card, tfa, prompts):
     return out, checks
 
 
+def widen(tree):
+    """A float32 copy of a tree of weights."""
+    return {k: widen(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+F32_LOGITS_TOL = 1e-4   # float32 serve path vs its plain path, of max-abs
+F32_NEW_TOKENS = 8
+
+
+def float32_hold(args, torch, np, cfg, params, prompts, dev):
+    """The family served once more at full width in float32 (its bf16
+    weights widened), where bf16 rounding cannot hide a fault: the
+    ``attn_impl="pallas"`` engine (zamba2: the attention kernels) against
+    the blockwise plain path, the prefill's last logits within
+    ``F32_LOGITS_TOL`` of their max-abs.  RWKV has no attention, so its
+    pair runs one path twice, as phase 7's bf16 pair does."""
+    import dataclasses as dc
+
+    from repro_torch.distributed.sharding import Recipe
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg32 = dc.replace(cfg, dtype="float32")
+    p32 = widen(params)
+    new = min(F32_NEW_TOKENS, args.new_tokens)
+
+    def engine(impl, block_kv=1024):
+        return ServeEngine(cfg32, p32, recipe=Recipe(
+            remat="none", attn_impl=impl, block_kv=block_kv),
+            max_seq=args.prompt_len + new + 8, device=dev)
+
+    t0 = time.perf_counter()
+    res = {impl: engine(impl).generate(prompts, max_new_tokens=new)
+           for impl in ("pallas", "blockwise")}
+    seconds = time.perf_counter() - t0
+    # the plain path against itself under 512-key blocks: how far float32
+    # rounding alone moves these logits (recorded beside the gate)
+    self_ref = engine("blockwise", 512).generate(prompts, max_new_tokens=1)
+    del p32
+    lk, lr = res["pallas"].prefill_logits, res["blockwise"].prefill_logits
+    rel = _rel(lk, lr)
+    gen = slice(args.prompt_len, None)
+    steps = (res["pallas"].tokens[:, gen] == res["blockwise"].tokens[:, gen])
+    steps = steps.reshape(steps.shape[0], steps.shape[1], -1)
+    checks = [(rel <= F32_LOGITS_TOL, f"{cfg.name} float32: prefill logits "
+                                      f"vs blockwise {rel:.3g} > "
+                                      f"{F32_LOGITS_TOL}"),
+              (bool(torch.isfinite(lk).all()),
+               f"{cfg.name} float32: prefill logits not finite")]
+    return dict(dtype="float32", new_tokens=new, seconds=seconds,
+                prefill_logits_max_abs=float(lr.abs().max()),
+                prefill_logits_rel_err_vs_blockwise=rel,
+                blockwise_block512_rel_err_vs_blockwise=_rel(
+                    self_ref.prefill_logits, lr),
+                tokens_equal_steps=int(steps.all(axis=(0, 2)).cumprod()
+                                       .sum())), checks
+
+
 def recurrence_check(torch, np, cfg, params, dev, n):
     """The chunked prefill against the stepwise decode recurrence on an
     ``n``-token prompt, in float32 (the bf16 weights widened: the point is
@@ -1429,10 +1512,6 @@ def recurrence_check(torch, np, cfg, params, dev, n):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed.sharding import Recipe, ShardingCtx
     from repro_torch.models import model as model_mod
-
-    def widen(tree):
-        return {k: widen(v) if isinstance(v, dict) else v.float()
-                for k, v in tree.items()}
 
     cfg32 = dc.replace(cfg, dtype="float32")
     p32 = widen(params)
@@ -1504,6 +1583,9 @@ def families_phase(args, torch, np, dev, on_card, mods, tops):
             out["recurrence"], more = recurrence_check(
                 torch, np, cfg, run["params"], dev,
                 min(RECURRENCE_TOKENS, args.prompt_len))
+            checks += more
+            out["float32_serve"], more = float32_hold(
+                args, torch, np, cfg, run["params"], run["prompts"], dev)
             checks += more
         if cfg.head_dim == 80 and run["first"]:
             d80_first = run["first"]
@@ -2150,6 +2232,15 @@ def distributed_phase(args, torch, np, dev, on_card, mods):
                  "restarts": [whole["restarts"], faulted["restarts"]],
                  "final_step": faulted["final_step"]}
         free()
+        launches = read_counters(mods)        # the training path's
+        if on_card:
+            # the dry runs end before the timed serve (they share the host)
+            mine = collect_dryrun(dry_self, 600)[0]
+            prod = collect_dryrun(dry_prod, 600)
+        # -- 3b. ServeEngine on the same mesh, the training state freed ----
+        mesh_launches = serve_mesh_leg(args, torch, np, dev, on_card, mods,
+                                       mesh)
+        free()
     except BaseException:
         for proc in (dry_self, dry_prod):     # stop what this phase started
             if proc is not None and proc.poll() is None:
@@ -2163,8 +2254,6 @@ def distributed_phase(args, torch, np, dev, on_card, mods):
     # -- 4. dry runs: this cell against the card, two production cells ---------
     step4 = None
     if on_card:
-        mine = collect_dryrun(dry_self, 600)[0]
-        prod = collect_dryrun(dry_prod, 600)
         mem = mine.get("memory", {})
         step4 = {"cell": {k: mine.get(k) for k in ("status", "mesh",
                                                     "recipe", "memory",
@@ -2194,7 +2283,6 @@ def distributed_phase(args, torch, np, dev, on_card, mods):
                                     "dominant", "step_time_lower_bound_s",
                                     "roofline_fraction")}
              for r in roofline_table(hw=H100)]
-    launches = read_counters(mods)
     out = {"phase": "distributed", "arch": cfg.name, "batch": batch_n,
            "seq": seq, "steps": DIST_STEPS,
            "total_memory": torch.cuda.get_device_properties(0).total_memory
@@ -2226,7 +2314,107 @@ def distributed_phase(args, torch, np, dev, on_card, mods):
             check(r["status"] == "ok", f"distributed: dry run {r}")
     check(not any(launches.values()),
           f"distributed: kernels launched on the train path: {launches}")
-    return launches
+    return launches, mesh_launches
+
+
+SERVE_MESH_RTOL = 1e-5   # mesh prefill logits vs mesh-less, of max-abs
+
+
+def serve_mesh_leg(args, torch, np, dev, on_card, mods, mesh):
+    """``ServeEngine`` on phase 9's one-rank mesh: starcoder2-3b at full
+    width and depth (``reduced`` on the CPU) with bf16 seeded weights,
+    batch 4, ``--prompt-len`` tokens and ``--new-tokens`` greedy steps
+    under ``Recipe(attn_impl="pallas")``, once with DTensor params and
+    cache on the (data 1, model 1) mesh and once mesh-less, each with the
+    six counters zeroed just before its counted generate and read just
+    after.  A third generate on the mesh holds every kernel call against
+    the plain version on the call's own local inputs (phase 6's rule).
+    Gates: equal tokens, prefill logits within ``SERVE_MESH_RTOL`` of
+    their max-abs, one flash launch a layer and one decode launch a layer
+    and step in each run.  Returns the mesh run's launches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.sharding import Recipe, is_dtensor
+    from repro_torch.kernels import ops as tops
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    t_leg = time.perf_counter()
+    full = get_config(TRAIN_ARCH)
+    cfg = full if on_card else reduced(full)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dtype=torch.bfloat16, device=dev)
+    prompts = family_prompts(np, cfg, np.random.default_rng(args.seed),
+                             SERVE_BATCH, args.prompt_len)
+    new = args.new_tokens
+    recipe = Recipe(remat="none", attn_impl="pallas")
+    engines = {m: ServeEngine(cfg, params, mesh=mesh if m == "mesh" else None,
+                              recipe=recipe, max_seq=args.prompt_len + new + 8,
+                              device=dev)
+               for m in ("mesh", "meshless")}
+    placed = all(is_dtensor(x) for x in _leaves(engines["mesh"].params))
+    runs, line = {}, {}
+    for name, eng in engines.items():
+        eng.generate(prompts, max_new_tokens=2)      # warm-up, off the count
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        zero_counters(mods)
+        res = eng.generate(prompts, max_new_tokens=new)
+        launches = read_counters(mods)
+        runs[name] = (res, launches)
+        line[name] = {
+            "prefill_seconds": res.prefill_seconds,
+            "decode_ms_per_step": 1e3 * res.decode_seconds / new,
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if on_card else None),
+            "launches": launches}
+    chk = AttentionCheck(torch, mods["flash_attention"],
+                         mods["decode_attention"])
+    undo = chk.install(tops)
+    try:
+        res_chk = engines["mesh"].generate(prompts, max_new_tokens=new)
+    finally:
+        undo()
+    per_call = chk.summary()
+    (a, la), (b, lb) = runs["meshless"], runs["mesh"]
+    rel = _rel(b.prefill_logits, a.prefill_logits)
+    gap = {k: line["mesh"][k] / line["meshless"][k]
+           for k in ("prefill_seconds", "decode_ms_per_step")}
+    want_f = attention_layers(cfg)
+    want = {"flash_attention": want_f, "decode_attention": want_f * new}
+    out = {"phase": "serve_mesh", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "batch": SERVE_BATCH, "prompt": args.prompt_len,
+           "new_tokens": new, "mesh": [1, 1], "dtensor_params": placed,
+           "runs": line, "mesh_over_meshless": gap,
+           "tokens_equal": bool((a.tokens == b.tokens).all()),
+           "check_run_tokens_equal": bool((res_chk.tokens == b.tokens).all()),
+           "prefill_logits_rel_err_vs_meshless": rel,
+           "per_call_vs_plain": per_call,
+           "seconds": time.perf_counter() - t_leg}
+    emit(out)                      # the leg's numbers before its checks
+    del engines, params, res_chk
+    check(placed, "serve_mesh: the engine's params are not DTensors")
+    check(out["tokens_equal"], f"serve_mesh: tokens on the mesh "
+                               f"{b.tokens[:, args.prompt_len:].tolist()} vs "
+                               f"{a.tokens[:, args.prompt_len:].tolist()}")
+    check(rel <= SERVE_MESH_RTOL, f"serve_mesh: prefill logits {rel:.3g} "
+                                  f"of max-abs from the mesh-less run")
+    check(bool(torch.isfinite(b.prefill_logits).all()),
+          "serve_mesh: prefill logits not finite")
+    for name, pc in per_call.items():
+        check((pc["calls"] > 0 or not on_card)
+              and pc.get("max_err_over_max_ref", 0.0) <= ATTN_ULP_REL,
+              f"serve_mesh: {name} {pc}")
+    if on_card:
+        for name, got in (("mesh", lb), ("meshless", la)):
+            seen = {k: got[k] for k in want}
+            check(seen == want, f"serve_mesh {name}: launches {seen}, "
+                                f"expected {want}")
+            others = {k: v for k, v in got.items() if k not in want}
+            check(not any(others.values()),
+                  f"serve_mesh {name}: other kernels launched {others}")
+    return lb
 
 
 def profile_mesh_step(torch, fn, params, state, batch):
@@ -2367,11 +2555,7 @@ def join_phase(args, torch, np, mods, keys, pgm, sync, on_card):
         f32s = call["f32s"]
         zero_rows += int(((f32s[:, 0] == 0) & (f32s[:, 4] > 0)).sum())
         price_err = max(price_err, compare_price(tpg, call, flags, 1e-5))
-    dh, executors = 0.0, sorted({sol.executor for _, _, sol in log.calls})
-    for engine, table, sol in log.calls:
-        host = PricingEngine(engine.cost, executor="host").price(
-            table, objective=sol.objective_name)
-        dh = max(dh, float(np.abs(sol.hit_rates - host.hit_rates).max()))
+    dh, executors = reprice_on_host(log.calls)
     timing = []
     for call, flags in recorder.price_calls if on_card else ():
         nbytes, ops = price_work(call, flags)
@@ -2604,15 +2788,16 @@ def paired_calls(name, dev_calls, host_calls):
     return dh, rel
 
 
-def hold_path(name, tpg, launches, price_calls, engine_calls, on_card):
+def hold_path(name, tpg, launches, price_calls, engine_calls, on_card,
+              expect=("price_grid",)):
     """Every recorded kernel call against its plain version (1e-5), and on
-    the card: ``price_grid`` launched, nothing else, every engine call
-    priced through the device executor."""
+    the card: the kernels of ``expect`` launched, nothing else, every
+    engine call priced through the device executor."""
     err = max((compare_price(tpg, call, flags, 1e-5)
                for call, flags in price_calls), default=0.0)
     executors = sorted({sol.executor for _, _, sol in engine_calls})
-    hold_launches(f"the {name} path", launches, ("price_grid",), on_card)
-    if on_card:
+    hold_launches(f"the {name} path", launches, expect, on_card)
+    if on_card and engine_calls:
         check(executors == ["device"],
               f"{name} path priced through {executors}, not the kernel")
     return err, executors
@@ -3195,11 +3380,248 @@ def che_leg(args, mods, on_card):
     return launches
 
 
+#: Fig 11's headline: the hybrid join up to 8.8x faster than a disk-based
+#: INLJ (recorded beside each workload's ratio; the machine is simulated).
+PAPER_HYBRID_SPEEDUP = 8.8
+#: bench_join's outer probes at most (its default); past ~180 s the leg
+#: cuts them first.
+JOIN_OUTER = 30_000
+
+
+def join_decisions(meth, out):
+    """A logged join call's decisions (held identical between executors)
+    and its predicted costs (their largest relative difference
+    recorded)."""
+    if meth == "choose":
+        return (out.strategy,), [v for c in out.costs.values()
+                                 for v in (c.seconds, c.physical_ios)]
+    if meth == "cost_curve":
+        k = len(out.capacities)
+        return (tuple(out.best_at(i, o)[0] for i in range(k)
+                      for o in ("seconds", "io")),), [
+            float(v) for t in (out.seconds, out.physical_ios)
+            for a in t.values() for v in a]
+    return ((tuple(out.fractions), tuple(out.capacities), out.strategies),
+            [out.cost.seconds, out.cost.physical_ios])
+
+
+def rerun_join_on_host(name, log):
+    """Each logged choose, cost curve and tree plan again through the host
+    executor on the same device: decisions identical.  Returns (calls,
+    max relative difference of the predicted costs, seconds)."""
+    rel = 0.0
+    t0 = time.perf_counter()
+    for meth, real, obj, a, kw, got in log.calls:
+        with executor("host"), contextlib.redirect_stdout(io.StringIO()):
+            want = real(obj, *a, **kw)
+        (dg, cg), (dw, cw) = (join_decisions(meth, got),
+                              join_decisions(meth, want))
+        check(dg == dw, f"{name} {meth}: {dg} on the card vs {dw} on the "
+                        "host executor")
+        rel = max([rel] + [abs(g - w) / abs(w) for g, w in zip(cg, cw) if w])
+    return len(log.calls), rel, time.perf_counter() - t0
+
+
+def reprice_on_host(engine_calls):
+    """Every priced table of a path again through the host executor: (max
+    |dh|, the executors the path priced through)."""
+    import numpy as np
+
+    from repro_torch.engine.table import PricingEngine
+
+    dh = 0.0
+    for engine, table, sol in engine_calls:
+        host = PricingEngine(engine.cost, executor="host").price(
+            table, objective=sol.objective_name)
+        dh = max(dh, float(np.abs(sol.hit_rates - host.hit_rates).max()))
+    return dh, sorted({sol.executor for _, _, sol in engine_calls})
+
+
+def join_leg(args, np, mods, sync, on_card):
+    """Fig 11 through ``repro_torch.launch.bench_join`` at its default
+    size (4M books keys, 30,000 outer probes, a 2 MiB buffer above the
+    index, the tree's pool at num_pages/5): the six outer mixtures, the
+    read blends, Algorithm 2 vectorised against its loop, the three-level
+    tree against the even split and the exhaustive replay.  Every
+    ``price_grid`` call held to its plain version, every priced table
+    repriced and every choose, cost curve and tree plan rerun through the
+    host executor."""
+    from repro_torch.engine.table import PricingEngine
+    from repro_torch.index.adapters import PGMAdapter
+    from repro_torch.join.session import JoinSession
+    from repro_torch.join.tree import JoinTreeSession
+    from repro_torch.launch import bench_join as bj
+    from repro_torch.launch.bench_common import smoke_kwargs
+
+    if on_card:
+        kw = dict(n_outer=min(JOIN_OUTER, 30_000))
+        reduced = ([] if kw["n_outer"] == 30_000 else
+                   [f"outer probes 30,000 -> {kw['n_outer']:,}"])
+    else:
+        kw = smoke_kwargs(bj.run)
+        reduced = ["the twin's --smoke sizes (CPU rehearsal)"]
+    clock, log, prices = PhaseClock(sync), SessionLog(), PriceLog()
+    # the log wraps the real methods, so their host reruns stay off the
+    # clock
+    wraps = [lambda: log.install(JoinSession, "choose"),
+             lambda: log.install(JoinSession, "cost_curve"),
+             lambda: log.install(JoinTreeSession, "plan"),
+             lambda: prices.install(PricingEngine),
+             lambda: clock.wrap(bj, "dataset", "dataset"),
+             lambda: clock.wrap(PGMAdapter, "build", "builds"),
+             lambda: clock.wrap(JoinSession, "calibrate", "calibrate"),
+             lambda: clock.wrap(JoinSession, "choose", "choose"),
+             lambda: clock.wrap(JoinSession, "cost_curve", "cost_curves"),
+             lambda: clock.wrap(JoinTreeSession, "plan", "tree_plans"),
+             lambda: clock.wrap(JoinSession, "execute", "replays"),
+             lambda: clock.wrap(bj, "partition_probes", "algorithm2"),
+             lambda: clock.wrap(bj, "partition_probes_loop",
+                                "algorithm2_loop")]
+    rec, launches, recorder, secs, _ = drive_leg(
+        mods, lambda: bj.run(**kw, torch_device=args.device), on_card, wraps)
+    t0 = time.perf_counter()
+    held = hold_kernel_calls(mods, recorder)
+    dh, executors = reprice_on_host(prices.calls)
+    calls, cost_rel, host_s = rerun_join_on_host("join", log)
+    fig11 = {wl: {"hybrid_speedup_vs_inlj": r["hybrid_speedup_vs_inlj"],
+                  "paper_hybrid_speedup": PAPER_HYBRID_SPEEDUP,
+                  "choose": r["choose"], "best": r["best"],
+                  "choose_over_best": r["ratio"],
+                  "range_segments": [r["range_segments"], r["segments"]],
+                  "replayed": {s: [v["seconds"], v["physical_ios"]]
+                               for s, v in r["strategies"].items()}}
+             for wl, r in rec["fig11"].items()}
+    tree = rec["tree"]
+    out = {"phase": "paper", "leg": "join", "keys": rec["n"],
+           "outer_probes": rec["n_outer"], "buffer_mb": rec["buffer_mb"],
+           "reduced": reduced, "fig11": fig11, "mix": rec["mix"],
+           "partition": rec["partition"],
+           "tree": {k: tree[k] for k in (
+               "n_outer", "pool_pages", "fractions", "strategies",
+               "chosen_io", "even_split_io", "best_replay_io",
+               "chosen_vs_best", "even_vs_chosen")},
+           "seconds": {"leg": secs, **clock.seconds,
+                       "host_executor_rerun": host_s,
+                       "checks": time.perf_counter() - t0},
+           "calls": clock.calls, "launches": launches,
+           "engine_calls": len(prices.calls), "executors": executors,
+           "session_calls": calls, "max_rel_cost_vs_host": cost_rel,
+           "max_abs_dh_vs_host": dh, **held}
+    emit(out)                      # the leg's numbers before its checks
+    check(rec["partition"]["identical"], "join: Algorithm 2's vectorised "
+                                         "and loop segments differ")
+    check(held["price_grid_max_abs_err"] <= 1e-5,
+          f"join price_grid vs plain {held['price_grid_max_abs_err']}")
+    check(dh <= 1e-5, f"join leg: device vs host executor max |dh| "
+                      f"{dh:.3g}")
+    hold_launches("join", launches, ("price_grid",), on_card)
+    if on_card:
+        check(executors == ["device"],
+              f"join leg priced through {executors}, not the kernel")
+    check(all(np.isfinite(r["hybrid_speedup_vs_inlj"])
+              for r in fig11.values()), "join: non-finite speedup")
+    return launches
+
+
+def kv_planner_leg(args, mods, on_card):
+    """``bench_kv_planner``: the structural closed form and the IRM (Che)
+    hit rate against PagedKVPool replay at five pool sizes; the errors are
+    recorded, not gated, as in the reference.  No kernel launches (the
+    reference prices ``hit_rate`` without its Che kernel)."""
+    from repro_torch.launch import bench_kv_planner as bkv
+
+    rec, launches, _, secs, printed = drive_leg(
+        mods, lambda: bkv.run(torch_device=args.device), on_card)
+    out = {"phase": "paper", "leg": "kv_planner", "rows": rec["rows"],
+           "lines": printed.splitlines(), "seconds": secs,
+           "launches": launches}
+    emit(out)
+    check(len(rec["rows"]) == 5 and all(
+        0.0 <= r[k] <= 1.0 for r in rec["rows"].values()
+        for k in ("replay", "structural", "irm_che")),
+          f"kv_planner: hit rates {rec['rows']}")
+    hold_launches("kv_planner", launches, (), on_card)
+    return launches
+
+
+def twin_decisions(rec, path="record"):
+    """A twin record's non-float leaves (decisions, knobs, counts),
+    compared exactly, and its float leaves, compared by relative
+    difference; times are left out."""
+    exact, floats = {}, {}
+    if isinstance(rec, dict):
+        for k, v in rec.items():
+            if "seconds" in str(k):
+                continue
+            e, f = twin_decisions(v, f"{path}.{k}")
+            exact.update(e)
+            floats.update(f)
+    elif isinstance(rec, (list, tuple)) and any(
+            isinstance(v, (dict, list, tuple, float)) for v in rec):
+        for i, v in enumerate(rec):
+            e, f = twin_decisions(v, f"{path}[{i}]")
+            exact.update(e)
+            floats.update(f)
+    elif isinstance(rec, float):
+        floats[path] = rec
+    else:
+        exact[path] = rec
+    return exact, floats
+
+
+#: The join and online example twins of the examples leg (their default
+#: sizes on the card, ``--smoke`` in the CPU rehearsal) and the kernels
+#: each launches: ``hybrid_join`` plans with ``choose`` under LRU alone,
+#: whose INLJ stream one ``CostSession.estimate`` prices with torch ops,
+#: as JAX's prices it with jnp.
+EXAMPLE_TWINS = {"hybrid_join": (), "join_tree": ("price_grid",),
+                 "serve_adaptive": ("price_grid",),
+                 "shard_fleet": ("price_grid",),
+                 "update_heavy": ("price_grid",)}
+
+
+def example_twin(args, mods, on_card, name):
+    """One example twin through the device executor (its gates raise in
+    the twin), every ``price_grid`` call held to its plain version, then
+    the whole example again through the host executor: the same engine
+    calls with h within 1e-5 and cell I/O within rtol 1e-5 or 2e-6
+    E[DAC], the record's decisions identical."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.launch.{name}")
+    fn = lambda: mod.run(smoke=not on_card, torch_device=args.device)
+    rec, launches, price_calls, dev_calls, secs = drive(mods, fn, on_card)
+    err, executors = hold_path(f"examples/{name}", mods["price_grid"],
+                               launches, price_calls, dev_calls, on_card,
+                               EXAMPLE_TWINS[name])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        host_rec, host_calls = rerun_on_host(mods, fn)
+    host_s = time.perf_counter() - t0
+    dh, rel = paired_calls(f"examples/{name}", dev_calls, host_calls)
+    (eg, fg), (ew, fw) = twin_decisions(rec), twin_decisions(host_rec)
+    diff = {k: (eg.get(k), ew.get(k)) for k in set(eg) | set(ew)
+            if eg.get(k) != ew.get(k) and not k.endswith("torch_device")}
+    check(not diff, f"examples/{name}: decisions on the card vs the host "
+                    f"executor differ: {diff}")
+    rec_rel = max([abs(fg[k] - fw[k]) / abs(fw[k]) for k in fw
+                   if k in fg and fw[k]], default=0.0)
+    return rec, launches, {
+        "seconds": secs, "host_executor_seconds": host_s,
+        "launches": launches, "engine_calls": len(dev_calls),
+        "executors": executors, "price_grid_calls": len(price_calls),
+        "price_grid_max_abs_err": err, "max_abs_dh_vs_host": dh,
+        "max_rel_io_vs_host": rel, "max_rel_record_vs_host": rec_rel}
+
+
 def examples_leg(args, mods, on_card):
     """``quickstart`` and ``tune_pgm`` at their default sizes: each
     family's q-error against replay, the CAM and baseline QPS; every tune
     and estimate rerun through the host executor with identical
-    decisions."""
+    decisions.  Then the join and online example twins (``hybrid_join``,
+    ``join_tree``, ``serve_adaptive``, ``shard_fleet``, ``update_heavy``)
+    at their default sizes, each with its gates, its kernel calls held and
+    a whole rerun through the host executor (``example_twin``)."""
     from repro_torch.core.session import CostSession
     from repro_torch.launch import quickstart, tune_pgm
     from repro_torch.tuning.session import TuningSession
@@ -3213,6 +3635,12 @@ def examples_leg(args, mods, on_card):
                        tune_pgm.run(smoke, args.device)), on_card, wraps)
     held = hold_kernel_calls(mods, recorder)
     calls, dh, host_s = rerun_on_host_executor("examples", log)
+    twins, total = {}, dict(launches)
+    for name in EXAMPLE_TWINS:
+        rec, got, twins[name] = example_twin(args, mods, on_card, name)
+        twins[name]["record"] = rec
+        for k, v in got.items():
+            total[k] += v
     out = {"phase": "paper", "leg": "examples",
            "quickstart": {f: {k: r[k] for k in ("est_io", "replay_io",
                                                   "q_error", "hit_rate",
@@ -3228,12 +3656,19 @@ def examples_leg(args, mods, on_card):
                      "tune_pgm": [tune["n"], tune["queries"]]},
            "seconds": {"leg": secs, "host_executor_rerun": host_s},
            "launches": launches, "session_calls": calls,
-           "max_abs_dh_vs_host": dh, **held}
+           "max_abs_dh_vs_host": dh, **held,
+           "twins": twins, "launches_with_twins": total}
     emit(out)
     check(held["price_grid_max_abs_err"] <= 1e-5,
           f"examples price_grid vs plain {held['price_grid_max_abs_err']}")
     hold_launches("examples", launches, ("price_grid",), on_card)
-    return launches
+    hold_launches("examples with the twins", total, ("price_grid",),
+                  on_card)
+    for name, t in twins.items():
+        check(t["price_grid_max_abs_err"] <= 1e-5,
+              f"examples/{name} price_grid vs plain "
+              f"{t['price_grid_max_abs_err']}")
+    return total
 
 
 def paper_tables_leg(args, mods, on_card):
@@ -3300,7 +3735,9 @@ def paper_section(args, np, mods, sync, on_card):
             lambda: device_executor_leg(args, mods, on_card, "engine"),
             lambda: device_executor_leg(args, mods, on_card, "profile_grid"),
             lambda: che_leg(args, mods, on_card),
+            lambda: join_leg(args, np, mods, sync, on_card),
             lambda: examples_leg(args, mods, on_card),
+            lambda: kv_planner_leg(args, mods, on_card),
             lambda: paper_tables_leg(args, mods, on_card))
     for leg in legs:
         for k, v in leg().items():
@@ -3521,9 +3958,8 @@ def main(argv=None) -> int:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    dist_launches = distributed_phase(args, torch, np,
-                                      torch.device(args.device), on_card,
-                                      mods)
+    dist_launches, mesh_launches = distributed_phase(
+        args, torch, np, torch.device(args.device), on_card, mods)
 
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; no result without a GPU",
@@ -3536,6 +3972,7 @@ def main(argv=None) -> int:
         row["families_launches"] = family_launches[row["name"]]
         row["train_launches"] = train_launches[row["name"]]
         row["distributed_launches"] = dist_launches[row["name"]]
+        row["serve_mesh_launches"] = mesh_launches[row["name"]]
     emit({"total_seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

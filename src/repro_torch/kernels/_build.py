@@ -160,15 +160,15 @@ def check_aligned(kernel: str, name: str, t) -> None:
 
 
 def refuse_dtensor(kernel: str, *tensors) -> None:
-    """Raise on DTensor inputs: the kernels take a device's local tensors,
-    and running them on a mesh is not ported (no JAX path calls its
-    Pallas kernels under a mesh: training and the dry run use
-    ``attn_impl="blockwise"``)."""
+    """Raise on DTensor inputs: the kernels take a device's local tensors.
+    On a mesh, ``models.attention`` hands them each rank's aligned shards
+    (``_on_shards``); a DTensor that reaches a wrapper is a caller's
+    error, never a reason to run another implementation."""
     from repro_torch.distributed.sharding import is_dtensor
     if any(is_dtensor(t) for t in tensors):
         raise ValueError(
-            f"{kernel} takes local tensors, not DTensors: on a mesh use "
-            f"attn_impl='blockwise' or 'dense'")
+            f"{kernel} takes local tensors, not DTensors: on a mesh, "
+            f"models.attention runs it on each rank's shards")
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

@@ -1,8 +1,7 @@
 """Benchmark driver — one twin per paper table/figure.
 
 The port's twin of the JAX package's ``benchmarks/run.py``: the same table
-of names (minus ``join`` and ``kv_planner``, whose twins are still to
-come), ``--only`` and ``--smoke``, every benchmark run through
+of names, ``--only`` and ``--smoke``, every benchmark run through
 ``repro_torch`` on ``--device``.  Prints ``name,us_per_call,derived`` CSV.
 A benchmark that raises prints the reference's ``ERROR:`` line and the
 driver goes on, as the reference does; it then exits 1 if any benchmark
@@ -25,7 +24,8 @@ from repro_torch.launch.bench_common import smoke_kwargs
 def table() -> dict:
     from repro_torch.launch import (bench_covariance, bench_engine,
                                     bench_estimate_grid, bench_fetch_strategy,
-                                    bench_io_size, bench_kernels,
+                                    bench_io_size, bench_join,
+                                    bench_kernels, bench_kv_planner,
                                     bench_pgm_tuning_curve,
                                     bench_point_accuracy, bench_profile_grid,
                                     bench_range_accuracy,
@@ -42,7 +42,9 @@ def table() -> dict:
         "pgm_tuning_curve": bench_pgm_tuning_curve.run,  # Fig 7
         "rmi_tuning_curve": bench_rmi_tuning_curve.run,  # Fig 8
         "tuning_e2e": bench_tuning_e2e.run,             # Figs 9/10
+        "join": bench_join.run,                         # Fig 11
         "kernels": bench_kernels.run,                   # che_solver kernel
+        "kv_planner": bench_kv_planner.run,             # Eq. 15 on KV pools
         "estimate_grid": bench_estimate_grid.run,       # grid vs loop
         "serving_drift": bench_serving_drift.run,       # adaptive vs static
         "write_path": bench_write_path.run,             # CAM merge scheduler

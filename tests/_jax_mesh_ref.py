@@ -3,6 +3,7 @@ process of its own with four host devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \
         python tests/_jax_mesh_ref.py IN.npz OUT.npz
+        python tests/_jax_mesh_ref.py --argument-bytes OUT.json
 
 ``IN.npz`` (written by ``tests/test_torch_distributed.py``) holds the
 initial weights of each step case under ``init/<case>/<leaf path>``, the
@@ -10,7 +11,13 @@ batches under ``batch/<case>/<step>/<key>``, and the compression inputs.
 ``OUT.npz`` gets, per placement case, each device's mesh coordinate and
 index range; per step case, the losses, grad norms and final weights; and
 the pod-gathered means and residuals of ``_pod_gather_mean`` under
-``jax.vmap(..., axis_name="pod")``.
+``jax.vmap(..., axis_name="pod")``; and per serve case with a bfloat16
+cache (the only cache JAX's engine allocates), the tokens of
+``ServeEngine(mesh=...).generate`` on (data 2, model 2).  With
+``--argument-bytes`` it writes instead, per dry-run cell of
+``_mesh_cases.DRYRUN_CELLS`` (a reduced config on (data 2, model 2),
+``launch.cells.build_cell`` compiled), the compiled step's
+``memory_analysis().argument_size_in_bytes``.
 """
 import dataclasses
 import json
@@ -29,7 +36,8 @@ from repro.models import params as params_mod
 from repro.train import optimizer as opt_mod
 from repro.train import train_step as ts_mod
 
-from _mesh_cases import OPT, PLACEMENTS, RECIPE, STEP_CASES, STEPS
+from _mesh_cases import (DRYRUN_CELLS, OPT, PLACEMENTS, RECIPE, SERVE_CASES,
+                         SERVE_MAX_SEQ, SERVE_NEW_TOKENS, STEP_CASES, STEPS)
 
 
 def config(arch):
@@ -111,14 +119,51 @@ def pod_mean(inp, out):
     out["pod/new_ef"] = np.asarray(new_ef)
 
 
+def serve(inp, out):
+    from repro.serve.engine import ServeEngine
+    cfg = config("starcoder2-3b")
+    mesh = mesh_of((2, 2), ("data", "model"))
+    params = jax.tree.map(jnp.asarray, unflatten(inp, "init/dense/"))
+    for case, impl, kv in SERVE_CASES:
+        if kv != "bfloat16":
+            continue
+        with jax.set_mesh(mesh):
+            eng = ServeEngine(cfg, params, mesh=mesh,
+                              recipe=Recipe(remat="none", attn_impl=impl),
+                              max_seq=SERVE_MAX_SEQ)
+            res = eng.generate(inp["serve/prompts"], SERVE_NEW_TOKENS)
+        out[f"serve/{case}/mesh_tokens"] = np.asarray(res.tokens)
+
+
+def argument_bytes(dst):
+    from repro.configs.base import ShapeSpec
+    from repro.launch.cells import build_cell, default_recipe
+    mesh = mesh_of((2, 2), ("data", "model"))
+    out = {}
+    for arch, kind, seq, batch in DRYRUN_CELLS:
+        cfg = reduced(ARCHS[arch])
+        shape = ShapeSpec(f"{kind}_small", kind, seq, batch)
+        with jax.set_mesh(mesh):
+            fn, args = build_cell(cfg, shape, mesh,
+                                  default_recipe(cfg, shape))
+            ma = fn.lower(*args).compile().memory_analysis()
+        out[f"{arch}/{kind}"] = int(ma.argument_size_in_bytes)
+    with open(dst, "w") as f:
+        json.dump(out, f)
+
+
 def main(src, dst):
     inp = dict(np.load(src))
     out = {}
     placements(out)
     pod_mean(inp, out)
+    serve(inp, out)
     steps(inp, out)
     np.savez(dst, **out)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    if sys.argv[1] == "--argument-bytes":
+        argument_bytes(sys.argv[2])
+    else:
+        main(sys.argv[1], sys.argv[2])

@@ -22,6 +22,28 @@ DECODE_CASES = (
 #: the decode rows' context lengths: cache length 16, split at 8 (row 1
 #: crosses the split in its three steps)
 DECODE_LENGTHS = (2, 7, 8, 12)
+#: (case, attn_impl, kv_cache_dtype) of the serve cases: ``ServeEngine.
+#: generate`` of the dense step case's float32 weights on (data 2, model 2)
+#: against the engine without a mesh (and, for a bfloat16 cache, against
+#: JAX's engine on the same mesh).  The prompt passes 256 tokens, so
+#: "pallas" prefill reaches the flash wrapper; the cache's length is split
+#: at 160, inside the prompt.
+SERVE_CASES = (
+    ("blockwise_bf16", "blockwise", "bfloat16"),
+    ("blockwise_int8", "blockwise", "int8"),
+    ("pallas_bf16", "pallas", "bfloat16"),
+    ("pallas_int8", "pallas", "int8"),
+)
+SERVE_PROMPT = (4, 300)
+SERVE_NEW_TOKENS = 6
+SERVE_MAX_SEQ = 320
+#: (arch, kind, seq_len, global batch) of the dry-run cells held to JAX's
+#: per-device argument bytes: reduced configs on (data 2, model 2).
+DRYRUN_CELLS = (
+    ("starcoder2-3b", "decode", 512, 8),
+    ("starcoder2-3b", "train", 256, 8),
+    ("qwen2-moe-a2.7b", "decode", 512, 8),
+)
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 RECIPE = dict(remat="block")
 #: (mesh shape, axis names, global shape, spec) of the placement cases.

@@ -5,7 +5,9 @@ world of four processes (``torch.multiprocessing``), started by
 coordinate and index range per placement case, ``_pod_gather_mean`` over
 the pod group, the ``dtensor_mm`` rule against plain products, each step
 case's losses, grad norms and final weights, the checkpoint checks, and
-each decode case against the same steps without a mesh.
+each decode case against the same steps without a mesh, and each serve
+case's ``ServeEngine.generate`` on the mesh against the engine without
+one, with the attention wrappers' calls counted.
 """
 import dataclasses
 import json
@@ -16,7 +18,8 @@ import torch
 import torch.distributed as dist
 
 from _mesh_cases import (DECODE_CASES, DECODE_LENGTHS, OPT, PLACEMENTS,
-                         RECIPE, STEP_CASES, STEPS)
+                         RECIPE, SERVE_CASES, SERVE_MAX_SEQ,
+                         SERVE_NEW_TOKENS, STEP_CASES, STEPS)
 
 
 def _mesh(shape, names):
@@ -216,6 +219,54 @@ def decode(out):
         out[f"decode/{case}/cache"] = np.asarray(worst)
 
 
+def serve(inp, out):
+    """Each serve case: ``generate`` on a (2, 2) mesh and without one, from
+    the dense step case's weights.  Records both runs' tokens, the prefill
+    logits' largest difference over their max-abs, and the mesh run's
+    calls of the two attention wrappers (each given local tensors, or it
+    raises)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.sharding import Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(reduced(ARCHS["starcoder2-3b"]),
+                              dtype="float32")
+    mesh = _mesh((2, 2), ("data", "model"))
+    host = _unflatten(inp, "init/dense/")
+    prompts = inp["serve/prompts"]
+    calls = {"flash_attention": 0, "decode_attention": 0}
+    real = {k: getattr(ops, k) for k in calls}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return fn
+
+    for case, impl, kv in SERVE_CASES:
+        recipe = Recipe(remat="none", attn_impl=impl, kv_cache_dtype=kv)
+        res = {}
+        for m in (None, mesh):
+            for k in calls:
+                calls[k] = 0
+                setattr(ops, k, counted(k))
+            try:
+                eng = ServeEngine(cfg, host, mesh=m, recipe=recipe,
+                                  max_seq=SERVE_MAX_SEQ, device="cpu")
+                res[m is not None] = eng.generate(prompts, SERVE_NEW_TOKENS)
+            finally:
+                for k in calls:
+                    setattr(ops, k, real[k])
+        a, b = res[False], res[True]
+        out[f"serve/{case}/tokens"] = a.tokens
+        out[f"serve/{case}/mesh_tokens"] = b.tokens
+        out[f"serve/{case}/logits"] = np.asarray(float(
+            (b.prefill_logits - a.prefill_logits).abs().max()
+            / a.prefill_logits.abs().max()))
+        out[f"serve/{case}/calls"] = np.asarray(
+            [calls["flash_attention"], calls["decode_attention"]])
+
+
 def checkpoints(inp, out, root):
     """Mesh -> file (restored without a mesh by the test) and file (written
     without a mesh by the test) -> mesh."""
@@ -253,6 +304,7 @@ def worker(rank, world, init, src, dst):
         mm_rule(out)
         checkpoints(inp, out, os.path.dirname(dst))
         decode(out)
+        serve(inp, out)
         steps(inp, out)
         if rank == 0:
             np.savez(dst, **out)

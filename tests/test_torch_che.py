@@ -304,3 +304,62 @@ def test_che_solve_wrapper_refuses(case):
     with pytest.raises(ValueError, match=match):
         call()
     assert (tche.solve_launches, tche.launches) == (s0, c0)
+
+
+# ---------------------------------------------------------------------------
+# a tune whose LRU cells reach the saturation edge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("budget_kib", (172, 224, 336))
+def test_lru_tune_at_the_saturation_edge_picks_jax_winner(monkeypatch,
+                                                           budget_kib):
+    """An LRU tune of PGM over a 40-page hot set, at budgets where some of
+    its (eps, split) cells have a capacity equal to their row's count of
+    nonzero pages (where ``che_solve_ref`` and JAX's Che solve part by
+    ~8% in T, above): both packages choose the same knob, split and
+    capacity, with est_io within rtol 1e-5 or 2e-6 E[DAC] (h sits within
+    float32 ulps of 1 there, ROADMAP's held divergence).  A tune prices by
+    the engine's fixed point, not by the Che solve, so that divergence
+    does not reach it."""
+    from _torch_paper import share_fit
+    from repro.core.cam import CamGeometry as JGeom
+    from repro.core.session import System as JSystem
+    from repro.core.workload import Workload as JWorkload
+    from repro.tuning.session import PGMBuilder as JPGM
+    from repro.tuning.session import TuningSession as JTuning
+    from repro_torch.core.cam import CamGeometry
+    from repro_torch.core.session import System
+    from repro_torch.core.workload import Workload
+    from repro_torch.data.datasets import make_dataset
+    from repro_torch.engine.table import PricingEngine
+    from repro_torch.tuning.session import PGMBuilder, TuningSession
+
+    share_fit(monkeypatch)
+    keys = make_dataset("books", 50_000, seed=1)
+    pos = np.random.default_rng(0).integers(10_000, 10_000 + 40 * 256, 4000)
+    over = {"eps": (8, 16, 32, 64, 128)}
+    tables = []
+    real = PricingEngine.price
+
+    def price(engine, table, **kw):
+        tables.append(table)
+        return real(engine, table, **kw)
+
+    monkeypatch.setattr(PricingEngine, "price", price)
+    got = TuningSession(System(CamGeometry(), budget_kib << 10, "lru",
+                               torch_device="cpu")).tune(
+        PGMBuilder(keys), Workload.point(pos, n=len(keys),
+                                         query_keys=keys[pos]),
+        overrides=over)
+    want = JTuning(JSystem(JGeom(), budget_kib << 10, "lru")).tune(
+        JPGM(keys), JWorkload.point(pos, n=len(keys), query_keys=keys[pos]),
+        overrides=over)
+    (table,) = tables
+    nnz = (np.asarray(table.profiles.counts) > 0).sum(1)[table.rows]
+    assert (table.caps == nnz).any()           # the edge is in the table
+    assert (got.best, got.split, got.capacity_pages) == \
+        (want.best, want.split, want.capacity_pages)
+    # h within float32 ulps of 1 here: est_io to rtol 1e-5 or 2e-6 E[DAC]
+    dac = want.estimates[want.best_knob].dac
+    assert abs(got.est_io - want.est_io) <= max(1e-5 * want.est_io,
+                                                2e-6 * dac)

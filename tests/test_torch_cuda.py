@@ -1051,14 +1051,24 @@ def test_attention_kernels_refuse_dtensors_on_the_card(dev, card_mesh):
         torch.randn(1, 512, 4, 64, generator=g, device=dev)
         .to(torch.bfloat16), card_mesh, [Replicate()] * 2)
         for _ in range(3))
+    lengths = torch.full((1,), 100, device=dev)
     with torch.no_grad():
         with pytest.raises(ValueError, match="not DTensors"):
             ops.flash_attention(q, k, v)
         with pytest.raises(ValueError, match="not DTensors"):
-            attention(q, k, v, impl="pallas")
-        lengths = torch.full((1,), 100, device=dev)
-        with pytest.raises(ValueError, match="not DTensors"):
             ops.decode_attention(q[:, :1], k, v, lengths)
+        # the model's dispatch hands the kernels each rank's local shards
+        from repro_torch.kernels import decode_attention as tda
+        from repro_torch.kernels import flash_attention as tfa
+        from repro_torch.models.attention import decode_attention
+        before = (tfa.launches, tda.launches)
+        out = attention(q, k, v, impl="pallas")
+        dec = decode_attention(q[:, :1], k, v, lengths, impl="pallas")
+        assert (tfa.launches, tda.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(out.to_local(), ops.flash_attention(
+            q.to_local(), k.to_local(), v.to_local()))
+        assert torch.equal(dec.to_local(), ops.decode_attention(
+            q.to_local()[:, :1], k.to_local(), v.to_local(), lengths))
 
 
 # ---------------------------------------------------------------------------
@@ -1083,6 +1093,13 @@ PAPER_TWIN_KERNELS = {
     "bench_covariance": (),
     "bench_fetch_strategy": (),
     "bench_kernels": ("che_solve",),
+    "bench_join": ("price_grid",),
+    "hybrid_join": (),              # choose under LRU: one estimate
+    "join_tree": ("price_grid",),
+    "serve_adaptive": ("price_grid",),
+    "shard_fleet": ("price_grid",),
+    "update_heavy": ("price_grid",),
+    "bench_kv_planner": (),
 }
 
 
@@ -1112,6 +1129,44 @@ def test_paper_twin_smoke_on_the_card(dev, name, capsys):
     if name == "bench_kernels":
         assert count["che_solve"]() - before["che_solve"] == 2
         assert record["consistency_err"] <= 1e-4
+
+
+def test_mesh_serve_on_the_card_matches_meshless(dev, card_mesh):
+    """``ServeEngine.generate`` of a reduced float32 model on a one-rank
+    NCCL mesh under ``attn_impl="pallas"`` (a 300-token prompt, so prefill
+    reaches the flash kernel): the mesh-less tokens, prefill logits within
+    1e-5 of their max-abs, and in each run one flash launch a layer and
+    one decode launch a layer and step."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.sharding import Recipe, is_dtensor
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(reduced(ARCHS["starcoder2-3b"]),
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 300)).astype(np.int32)
+    recipe = Recipe(remat="none", attn_impl="pallas")
+    runs = []
+    for mesh in (None, card_mesh):
+        eng = ServeEngine(cfg, params, mesh=mesh, recipe=recipe,
+                          max_seq=320, device=dev)
+        assert all(is_dtensor(x) == (mesh is not None)
+                   for x in eng.params["blocks"].values())
+        tfa.launches = tda.launches = 0
+        res = eng.generate(prompts, 6)
+        runs.append((res, tfa.launches, tda.launches))
+    (a, fa, da), (b, fb, db) = runs
+    np.testing.assert_array_equal(b.tokens, a.tokens)
+    assert float((b.prefill_logits - a.prefill_logits).abs().max()) <= \
+        1e-5 * float(a.prefill_logits.abs().max())
+    assert (fa, da) == (fb, db) == (cfg.num_layers, cfg.num_layers * 6)
 
 
 def test_tuner_shims_on_the_card_match_the_cpu(dev):

@@ -26,13 +26,22 @@ once for the module:
   caches), qwen2-moe-a2.7b and zamba2-2.7b on (data 2, model 2), the cache
   split by batch and by length, against the same steps without a mesh:
   logits and final caches within 1e-5 of their max-abs (float32 sums in
-  another order), int8 cache values equal.
+  another order), int8 cache values equal;
+* ``ServeEngine.generate`` of the dense case's float32 weights on (data 2,
+  model 2) under ``blockwise`` and ``pallas`` with a bfloat16 and an int8
+  cache (a 300-token prompt, 6 new tokens, the cache's length split inside
+  the prompt) against the engine without a mesh: tokens equal, prefill
+  logits within 1e-5 of their max-abs, the attention wrappers called on
+  local shards once a layer (flash) and once a layer and step (decode)
+  under ``pallas`` and never otherwise; with a bfloat16 cache the tokens
+  also equal those of JAX's ``ServeEngine(mesh=...)`` on the same mesh.
 
 In this process: int8 quantization bit-equal to JAX, error feedback as
 ``tests/test_distributed.py``, ``reshard_params`` without a mesh, every
 family's loss and gradients on a one-rank mesh equal to the mesh-less
 ones, the Supervisor restarting on a one-rank mesh, ``collective_bytes``
-of a known all-gather, and ``ServeEngine`` refusing a mesh.
+of a known all-gather, and ``ServeEngine`` refusing a mesh that is not a
+``DeviceMesh``.
 """
 import json
 import os
@@ -54,7 +63,8 @@ from repro_torch.distributed.elastic import reshard_params
 from repro_torch.train.optimizer import leaves as opt_leaves
 from repro_torch.train.optimizer import map_tree
 
-from _mesh_cases import DECODE_CASES, OPT, PLACEMENTS, STEP_CASES, STEPS
+from _mesh_cases import (DECODE_CASES, OPT, PLACEMENTS, SERVE_CASES,
+                         SERVE_NEW_TOKENS, SERVE_PROMPT, STEP_CASES, STEPS)
 from _torch_train import (TRecipe, configs, flat, perturbed_tree, pipeline,
                           rel_max)
 
@@ -96,6 +106,9 @@ def runs(tmp_path_factory):
             for k, v in pipe.batch_for_step(i).items():
                 inp[f"batch/{case}/{i}/{k}"] = v
     rng = np.random.default_rng(4)
+    inp["serve/prompts"] = rng.integers(
+        0, configs("starcoder2-3b")[0].vocab_size, SERVE_PROMPT,
+        dtype=np.int64).astype(np.int32)
     inp["pod/leaf"] = rng.standard_normal((2, 8, 6)).astype(np.float32)
     inp["pod/ef"] = 0.01 * rng.standard_normal((2, 8, 6)).astype(np.float32)
     src = tmp / "in.npz"
@@ -194,6 +207,25 @@ def test_mesh_decode_matches_meshless(runs, case):
     assert float(port[f"decode/{case}/logits"]) <= 1e-5
     # float leaves over their max-abs; int8 values in counts (must be 0)
     assert float(port[f"decode/{case}/cache"]) <= 1e-5
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SERVE_CASES])
+def test_mesh_serve_matches_meshless(runs, case):
+    port, jax_out, _ = runs
+    impl, kv = {c: (i, k) for c, i, k in SERVE_CASES}[case]
+    tokens = port[f"serve/{case}/tokens"]
+    assert tokens.shape == (SERVE_PROMPT[0],
+                            SERVE_PROMPT[1] + SERVE_NEW_TOKENS)
+    np.testing.assert_array_equal(port[f"serve/{case}/mesh_tokens"], tokens)
+    assert float(port[f"serve/{case}/logits"]) <= 1e-5
+    layers = configs("starcoder2-3b")[1].num_layers
+    want = ([layers, layers * SERVE_NEW_TOKENS] if impl == "pallas"
+            else [0, 0])
+    assert port[f"serve/{case}/calls"].tolist() == want
+    if kv == "bfloat16":            # the only cache JAX's engine makes
+        np.testing.assert_array_equal(
+            port[f"serve/{case}/mesh_tokens"],
+            jax_out[f"serve/{case}/mesh_tokens"])
 
 
 def test_int8_quantization_bit_equal_to_jax():
@@ -326,8 +358,8 @@ def test_supervisor_restarts_on_a_mesh(one_rank):
     assert faulted["losses"][-1] == whole["losses"][-1]
 
 
-def test_serve_engine_refuses_a_mesh():
+def test_serve_engine_refuses_a_mesh_that_is_not_a_device_mesh():
     from repro_torch.configs import ARCHS as TARCHS
     from repro_torch.serve.engine import ServeEngine
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeEngine(TARCHS["starcoder2-3b"], {}, mesh=object(), device="cpu")

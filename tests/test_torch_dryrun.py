@@ -76,3 +76,43 @@ def test_dryrun_import_sets_up_nothing():
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
+
+
+def test_dryrun_argument_bytes_equal_jax(monkeypatch, tmp_path):
+    """Reduced cells on (data 2, model 2): each rank's argument bytes in
+    the port's dry run (a fake 4-rank world, the step under
+    ``FakeTensorMode``) equal JAX's ``memory_analysis().
+    argument_size_in_bytes`` of the same cell compiled on 4 host devices
+    (``tests/_jax_mesh_ref.py --argument-bytes``).  Those bytes follow
+    from the specs alone; the port's step must also trace."""
+    import torch.distributed as dist
+
+    from _mesh_cases import DRYRUN_CELLS
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}"
+               f"{ROOT / 'tests'}", JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    ref = subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_jax_mesh_ref.py"),
+         "--argument-bytes", str(tmp_path / "jax.json")], env=env,
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    got = {}
+    try:
+        for arch, kind, seq, batch in DRYRUN_CELLS:
+            monkeypatch.setitem(dryrun.ARCHS, arch, reduced(ARCHS[arch]))
+            rec = dryrun.run_cell(arch, ShapeSpec(f"{kind}_small", kind, seq,
+                                                  batch),
+                                  mesh_shape=(2, 2), verbose=False)
+            assert rec["status"] == "ok", rec.get("trace")
+            got[f"{arch}/{kind}"] = rec["memory"]["argument_bytes"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        _, err = ref.communicate(timeout=300)
+    assert ref.returncode == 0, err[-2000:]
+    want = json.loads((tmp_path / "jax.json").read_text())
+    assert got == want

@@ -57,7 +57,11 @@ def test_port_imports_without_jax_or_repro():
                  "launch.bench_point_accuracy",
                  "launch.bench_range_accuracy", "launch.bench_io_size",
                  "launch.bench_covariance", "launch.bench_fetch_strategy",
-                 "launch.bench_kernels", "launch.bench_run"):
+                 "launch.bench_kernels", "launch.bench_run",
+                 "launch.bench_join", "launch.hybrid_join",
+                 "launch.join_tree", "launch.serve_adaptive",
+                 "launch.shard_fleet", "launch.update_heavy",
+                 "launch.bench_kv_planner"):
         assert "repro_torch." + name in mods
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -222,3 +226,35 @@ def test_paper_twins_and_shims_default_to_the_card(monkeypatch):
             mod.main(["--smoke"])
     # the driver reports each refusal and exits 1
     assert bench_run.main(["--smoke", "--only", "io_size", "kernels"]) == 1
+
+
+#: The twins of the join and online scripts, each with the first piece of
+#: work its ``run`` does after resolving the device.
+LATER_TWINS = {"bench_join": "dataset", "hybrid_join": "make_dataset",
+               "join_tree": "make_dataset", "serve_adaptive": "make_dataset",
+               "shard_fleet": "make_dataset",
+               "update_heavy": "synthetic_drifting_trace",
+               "bench_kv_planner": "block_popularity"}
+
+
+@pytest.mark.parametrize("name", sorted(LATER_TWINS))
+def test_join_and_online_twins_default_to_the_card_and_refuse_first(
+        monkeypatch, name):
+    import importlib
+    import inspect
+
+    from repro_torch.launch import bench_common
+
+    mod = importlib.import_module(f"repro_torch.launch.{name}")
+    assert inspect.signature(mod.run).parameters[
+        "torch_device"].default == "cuda"
+
+    def work(*a, **kw):
+        raise AssertionError(f"{name} worked before refusing the card")
+
+    monkeypatch.setattr(mod, LATER_TWINS[name], work)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.run(**bench_common.smoke_kwargs(mod.run))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(["--smoke"])
