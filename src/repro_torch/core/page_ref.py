@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 __all__ = [
     "point_lut",
     "point_page_refs",
@@ -91,10 +93,10 @@ def point_lut(eps: int, c_ipp: int, device="cpu") -> torch.Tensor:
     into a multiply by its float32 reciprocal, rounded once; so does this
     function, which keeps the two LUTs bit-equal.
     """
-    width = _lut_width(torch.tensor(int(eps), device=device),
+    width = _lut_width(obs.to_device(int(eps), device),
                        lut_radius(eps, c_ipp), c_ipp)
     inv = np.float32(1.0) / np.float32(2 * int(eps) + 1)
-    return width.float() * torch.tensor(inv, device=device)
+    return width.float() * obs.to_device(inv, device)
 
 
 def point_access_prob_exact(r: int, page: int, eps: int, c_ipp: int) -> float:
@@ -228,7 +230,7 @@ def point_page_refs_mixed_eps(
     total = torch.zeros((), dtype=torch.float32, device=device)
     for eps in np.unique(eps_per_query):
         sel = positions[eps_per_query == eps]
-        c, t = point_page_refs(torch.as_tensor(sel, device=device),
+        c, t = point_page_refs(obs.to_device(sel, device),
                                int(max(eps, 1)), c_ipp, num_pages)
         counts = counts + c
         total = total + t
@@ -408,7 +410,7 @@ def page_intervals(
     lo = torch.clamp(window_lo.long(), min=0) // c_ipp
     hi = torch.clamp(window_hi.long(), max=num_pages * c_ipp - 1) // c_ipp
     return lo, torch.minimum(torch.maximum(hi, lo),
-                             torch.tensor(num_pages - 1, device=lo.device))
+                             obs.to_device(num_pages - 1, lo.device))
 
 
 def sorted_workload_rn(

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core import cache_models, dac, page_ref
 from repro_torch.core.cam import CamEstimate, CamGeometry, capacity_pages
 from repro_torch.core.workload import (INSERT, MIXED, POINT, RANGE, SORTED,
@@ -81,9 +82,7 @@ def resolve_torch_device(device) -> torch.device:
 
 def _np64(x) -> np.ndarray:
     """A host float64 copy of a tensor (or array-like)."""
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.asarray(x, np.float64)
+    return np.asarray(obs.to_host(x), np.float64)
 
 
 class UnsupportedWorkloadError(ValueError):
@@ -297,24 +296,25 @@ def sorted_part_for(workload: Workload, eps: int, geom: CamGeometry,
     error-bounded designs; with ``eps=0`` (no uniform bound, e.g. RMI) it is
     read off the widest observed probe window instead.
     """
-    plo, phi = page_ref.page_intervals(
-        torch.as_tensor(np.asarray(workload.positions, np.int64),
-                        device=device),
-        torch.as_tensor(np.asarray(workload.hi_positions, np.int64),
-                        device=device),
-        geom.c_ipp, num_pages)
-    r_total, n_distinct, coverage, pinned = page_ref.sorted_workload_stats(
-        plo, phi, num_pages)
+    with obs.span("cam.profile.upload"):
+        lo = obs.to_device(np.asarray(workload.positions, np.int64), device)
+        hi = obs.to_device(np.asarray(workload.hi_positions, np.int64),
+                           device)
+    with obs.span("cam.profile.histogram"):
+        plo, phi = page_ref.page_intervals(lo, hi, geom.c_ipp, num_pages)
+        r_total, n_distinct, coverage, pinned = \
+            page_ref.sorted_workload_stats(plo, phi, num_pages)
     if eps > 0:
         min_cap = 1 + int(np.ceil(2 * eps / geom.c_ipp))
     elif workload.n_queries:
-        min_cap = int(torch.max(phi - plo + 1))
+        min_cap = int(obs.to_host(torch.max(phi - plo + 1)))
     else:
         min_cap = 1
     return SortedScanPart(
-        total_refs=float(r_total), distinct_pages=float(n_distinct),
+        total_refs=float(obs.to_host(r_total)),
+        distinct_pages=float(obs.to_host(n_distinct)),
         min_capacity=min_cap, coverage=coverage,
-        pinned_retouches=float(pinned))
+        pinned_retouches=float(obs.to_host(pinned)))
 
 
 def sorted_stream_profile(workload: Workload, geom: CamGeometry,
@@ -374,14 +374,14 @@ def _exact_cap_array(values, device) -> torch.Tensor:
     deep in the compulsory regime so the clamp is lossless.
     """
     arr = np.floor(np.asarray(values, np.float64))
-    return torch.as_tensor(np.clip(arr, -1, 2**31 - 129).astype(np.int32),
-                           device=device)
+    return obs.to_device(np.clip(arr, -1, 2**31 - 129).astype(np.int32),
+                         device)
 
 
 def _as_row(row, device) -> torch.Tensor:
     """A float32 histogram row on ``device`` (numpy rows from the host
     profile executor are uploaded once here)."""
-    return torch.as_tensor(row, dtype=torch.float32, device=device)
+    return obs.to_device(row, device, torch.float32)
 
 
 def _pad_row(row: torch.Tensor, width: int) -> torch.Tensor:
@@ -411,7 +411,7 @@ def _merge_sorted_parts(parts: Sequence[SortedScanPart]) -> SortedScanPart:
         coverage = coverage + p.coverage
     return SortedScanPart(
         total_refs=sum(p.total_refs for p in parts),
-        distinct_pages=float(torch.sum(coverage > 0)),
+        distinct_pages=float(obs.to_host(torch.sum(coverage > 0))),
         min_capacity=max(p.min_capacity for p in parts),
         coverage=coverage,
         pinned_retouches=sum(p.pinned_retouches for p in parts))
@@ -615,9 +615,9 @@ class GridProfiles:
         nq = max(int(n_queries), 1)
         return cls(
             knobs=tuple(knobs),
-            counts=torch.as_tensor(
-                counts, dtype=torch.float32,
-                device=resolve_torch_device(system.torch_device)),
+            counts=obs.to_device(
+                counts, resolve_torch_device(system.torch_device),
+                torch.float32),
             totals=np.asarray(totals, np.float64),
             dacs=np.asarray(dac_mass, np.float64) / nq,
             sizes=sizes_arr,
@@ -737,6 +737,7 @@ class CostSession:
         best = min(estimates, key=lambda k: estimates[k].io_per_query)
         return GridResult(estimates, best, elapsed, tuple(prof.skipped))
 
+    @obs.traced("cam.profile")
     def grid_profiles(self, candidates: Sequence[GridCandidate],
                       workload: Workload, sample_rate: float = 1.0,
                       seed: int = 0, batch_mixed_eps: bool = True,
@@ -870,9 +871,8 @@ class CostSession:
         policy = policy if policy is not None else self.system.policy
         dev = profiles.counts.device
         counts = (profiles.counts if rows is None
-                  else profiles.counts[torch.as_tensor(idx, device=dev)])
-        sample_refs = torch.as_tensor(profiles.totals[idx],
-                                      dtype=torch.float32, device=dev)
+                  else profiles.counts[obs.to_device(idx, dev)])
+        sample_refs = obs.to_device(profiles.totals[idx], dev, torch.float32)
         full_refs = sample_refs * profiles.scale
         caps_arr = _exact_cap_array(capacities, dev)
         num_pages = int(profiles.counts.shape[1])
@@ -886,9 +886,8 @@ class CostSession:
             # uniform grids) a single (P,) row.
             zero_w = torch.zeros((num_pages,), dtype=torch.float32,
                                  device=dev)
-            w_refs = torch.as_tensor([wp.total_refs if wp is not None else 0.0
-                                      for wp in wps], dtype=torch.float32,
-                                     device=dev)
+            w_refs = obs.to_device([wp.total_refs if wp is not None else 0.0
+                                    for wp in wps], dev, torch.float32)
             wkw = dict(
                 write_counts=_stack_or_share(
                     [wp.counts if wp is not None else zero_w for wp in wps]),
@@ -912,8 +911,8 @@ class CostSession:
                     sps[i] = dataclasses.replace(
                         sp, coverage=_compulsory_coverage(sp, num_pages,
                                                           dev))
-            s_refs = torch.as_tensor([sp.total_refs for sp in sps],
-                                     dtype=torch.float32, device=dev)
+            s_refs = obs.to_device([sp.total_refs for sp in sps], dev,
+                                   torch.float32)
             h, n_distinct = cache_models.hit_rate_grid(
                 policy, counts, sample_refs, full_refs, caps_arr,
                 sorted_coverage=_stack_or_share(
@@ -921,9 +920,8 @@ class CostSession:
                 sorted_refs=s_refs,
                 sorted_distinct=_exact_cap_array(
                     [sp.distinct_pages for sp in sps], dev),
-                sorted_pinned=torch.as_tensor(
-                    [sp.pinned_retouches for sp in sps], dtype=torch.float32,
-                    device=dev),
+                sorted_pinned=obs.to_device(
+                    [sp.pinned_retouches for sp in sps], dev, torch.float32),
                 sorted_min_caps=_exact_cap_array(
                     [sp.min_capacity for sp in sps], dev),
                 sorted_full_refs=s_refs * profiles.scale, **wkw)
@@ -935,7 +933,8 @@ class CostSession:
         for i, true_n in surrogate.items():
             # report the same footprint _finish's coverage-less fallback
             # does (IRM distinct + the part's N), not the surrogate's page
-            n_distinct[i] = float(torch.sum(counts[i] > 0)) + true_n
+            n_distinct[i] = float(obs.to_host(torch.sum(counts[i] > 0))) \
+                + true_n
         return h, n_distinct
 
     def _feasible(self, candidates: Sequence[GridCandidate]):
@@ -1116,13 +1115,17 @@ class CostSession:
             num_pages = geom.num_pages(int(ok[0].index.n))
             if _resolve_profile_executor(executor, self.device) == "device":
                 from repro_torch.kernels import profile_grid as _device_profile
-                counts_b, totals_b = \
-                    _device_profile.point_page_refs_mixed_eps_grid(
-                        wl.positions, np.stack(eps_rows), geom.c_ipp,
-                        num_pages, device=self.device)
+                with obs.span("cam.profile.histogram"):
+                    counts_b, totals_b = \
+                        _device_profile.point_page_refs_mixed_eps_grid(
+                            wl.positions, np.stack(eps_rows), geom.c_ipp,
+                            num_pages, device=self.device)
             else:
-                counts_b, totals_b = page_ref.point_page_refs_mixed_eps_grid(
-                    wl.positions, np.stack(eps_rows), geom.c_ipp, num_pages)
+                with obs.span("cam.profile.histogram"):
+                    counts_b, totals_b = \
+                        page_ref.point_page_refs_mixed_eps_grid(
+                            wl.positions, np.stack(eps_rows), geom.c_ipp,
+                            num_pages)
             for i, c in enumerate(ok):
                 out[id(c)] = (counts_b[i], float(totals_b[i]), ok_dacs[i])
         return out
@@ -1241,8 +1244,7 @@ class CostSession:
                              "grid estimation")
         num_pages = geom.num_pages(int(wl.n))
         dev = self.device
-        eps_arr = torch.as_tensor([c.eps for c in cands], dtype=torch.int64,
-                                  device=dev)
+        eps_arr = obs.to_device([c.eps for c in cands], dev, torch.int64)
         eps_f = np.asarray([c.eps for c in cands], np.float64)
         dac_per_query = _np64(
             dac.expected_dac(eps_f, geom.c_ipp, geom.strategy))
@@ -1250,15 +1252,17 @@ class CostSession:
         write_parts = []
 
         def positions(arr):
-            return torch.as_tensor(np.asarray(arr, np.int64), device=dev)
+            with obs.span("cam.profile.upload"):
+                return obs.to_device(np.asarray(arr, np.int64), dev)
 
         def grid_counts(w: Workload):
             if w.kind == POINT:
                 d_radius = page_ref.lut_radius(max(c.eps for c in cands),
                                                geom.c_ipp)
-                counts, totals = page_ref.point_page_refs_grid(
-                    positions(w.positions), eps_arr, d_radius,
-                    geom.c_ipp, num_pages)
+                pos = positions(w.positions)
+                with obs.span("cam.profile.histogram"):
+                    counts, totals = page_ref.point_page_refs_grid(
+                        pos, eps_arr, d_radius, geom.c_ipp, num_pages)
                 dac_mass = dac_per_query * w.n_queries
                 return counts, _np64(totals), dac_mass
             if w.kind in WRITE_KINDS:
@@ -1268,20 +1272,21 @@ class CostSession:
                 # un-built uniform-eps candidates have no gap structure).
                 d_radius = page_ref.lut_radius(max(c.eps for c in cands),
                                                geom.c_ipp)
-                counts, totals = page_ref.point_page_refs_grid(
-                    positions(w.positions), eps_arr, d_radius,
-                    geom.c_ipp, num_pages)
-                wcounts, wtotal = page_ref.point_page_refs(
-                    positions(w.positions), 0,
-                    geom.c_ipp, num_pages)
-                write_parts.append(WriteStreamPart(wcounts, float(wtotal)))
+                pos = positions(w.positions)
+                with obs.span("cam.profile.histogram"):
+                    counts, totals = page_ref.point_page_refs_grid(
+                        pos, eps_arr, d_radius, geom.c_ipp, num_pages)
+                    wcounts, wtotal = page_ref.point_page_refs(
+                        pos, 0, geom.c_ipp, num_pages)
+                write_parts.append(WriteStreamPart(
+                    wcounts, float(obs.to_host(wtotal))))
                 dac_mass = (dac_per_query + 1.0) * w.n_queries
                 return counts, _np64(totals), dac_mass
             if w.kind == RANGE:
-                counts, totals = page_ref.range_page_refs_grid(
-                    positions(w.positions),
-                    positions(w.hi_positions),
-                    eps_arr, geom.c_ipp, num_pages, int(wl.n))
+                lo, hi = positions(w.positions), positions(w.hi_positions)
+                with obs.span("cam.profile.histogram"):
+                    counts, totals = page_ref.range_page_refs_grid(
+                        lo, hi, eps_arr, geom.c_ipp, num_pages, int(wl.n))
                 totals = _np64(totals)
                 return counts, totals, totals.copy()
             if w.kind == SORTED:

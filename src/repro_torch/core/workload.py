@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 __all__ = ["Workload", "locate", "subsample_indices"]
 
 POINT = "point"
@@ -43,8 +45,16 @@ def locate(keys: np.ndarray, query_keys: np.ndarray) -> np.ndarray:
     the cached result — this is where CAM's tuning-loop speedup starts.
     """
     keys = np.asarray(keys)
-    pos = np.searchsorted(keys, np.asarray(query_keys), side="left")
-    return np.minimum(pos, keys.shape[0] - 1).astype(np.int64)
+    query_keys = np.asarray(query_keys)
+    with obs.span("cam.locate"):
+        if obs.active():
+            # searchsorted converts the whole key file when the query keys'
+            # type differs from it (float64 queries into uint64 keys)
+            common = np.result_type(keys, query_keys)
+            if common != keys.dtype:
+                obs.count("locate.cast_bytes", keys.size * common.itemsize)
+        pos = np.searchsorted(keys, query_keys, side="left")
+        return np.minimum(pos, keys.shape[0] - 1).astype(np.int64)
 
 
 def subsample_indices(n: int, rate: float, seed: int = 0) -> np.ndarray:

@@ -47,6 +47,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 __all__ = ["PriceTable", "PriceSolution", "PricingEngine"]
 
 
@@ -329,6 +331,7 @@ class PricingEngine:
         return self._instances[executor]
 
     # ---------------------------------------------------------------- price
+    @obs.traced("cam.price")
     def price(self, table: PriceTable, *, objective: str = "io",
               executor=None) -> PriceSolution:
         """Solve every cell of ``table`` and rank by ``objective``.

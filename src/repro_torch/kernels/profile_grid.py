@@ -52,6 +52,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import page_ref
 from repro_torch.core.session import DEFAULT_TORCH_DEVICE, _np64
 
@@ -290,7 +291,7 @@ def point_page_refs_mixed_eps_grid(
     lut, bands = _lut_stack(class_eps, c_ipp, max_radius)
 
     def up(a):
-        return torch.as_tensor(a, device=device)
+        return obs.to_device(a, device)
 
     padded = profile_grid(up(keys), up(page), up(lut), up(bands),
                           c_ipp=c_ipp, pad=pad)

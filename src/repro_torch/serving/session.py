@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.workload import Workload
 from repro_torch.serving.sketch import (DEFAULT_PAGE_BINS, WindowSketch,
                                         tv_distance)
@@ -174,6 +175,7 @@ class ServingSession:
                             ts=batch[-1].ts)
                 for batch in iter_batches(events, self.config.batch_size)]
 
+    @obs.traced("serving.ingest")
     def ingest(self, workload: Workload, ts: float = 0.0) -> BatchReport:
         """One loop iteration: sketch update, drift check, maybe a retune."""
         if self.current is None:
@@ -185,7 +187,8 @@ class ServingSession:
         self.stats.events += workload.n_queries
         if self._cooldown > 0:
             self._cooldown -= 1
-        tv = tv_distance(self.sketch.summary(), self._baseline)
+        with obs.span("serving.drift"):
+            tv = tv_distance(self.sketch.summary(), self._baseline)
         if not self._armed and tv < cfg.drift_threshold - cfg.hysteresis:
             self._armed = True
         drifted = tv > cfg.drift_threshold and (
@@ -198,9 +201,12 @@ class ServingSession:
                            drifted=drifted, decision=decision)
 
     # -------------------------------------------------------------- decision
+    @obs.traced("serving.retune")
     def _retune(self) -> TuneResult:
+        with obs.span("serving.merge"):
+            profiles = self.sketch.to_profiles()
         return self.tuning.tune_from_profiles(
-            self.builder, self.sketch.to_profiles(), knob_space=self.space)
+            self.builder, profiles, knob_space=self.space)
 
     def _deploy(self, result: TuneResult) -> None:
         self.current = result

@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.session import (CostSession, GridCandidate,
                                       GridProfiles, SortedScanPart,
                                       WriteStreamPart)
@@ -287,9 +288,9 @@ class WindowSketch:
             maxlen=self.window_chunks)
         self.knobs: Optional[Tuple[object, ...]] = None
         self.updates = 0
-        self.events_ingested = 0
 
     # ---------------------------------------------------------------- update
+    @obs.traced("serving.sketch")
     def update(self, workload: Workload) -> SketchChunk:
         """Ingest one batch: profile it, append its chunk, evict the oldest.
 
@@ -308,9 +309,9 @@ class WindowSketch:
         chunk = self._chunk_from(profs, workload)
         self.chunks.append(chunk)
         self.updates += 1
-        self.events_ingested += chunk.n_queries
         return chunk
 
+    @obs.traced("serving.sketch.chunk")
     def _chunk_from(self, profs: GridProfiles,
                     workload: Workload) -> SketchChunk:
         geom = self.system.geom
@@ -375,7 +376,7 @@ class WindowSketch:
         sparts: List[Optional[SortedScanPart]]
         if acc.sorted_coverage is not None and acc.sorted_refs > 0:
             coverage = acc.sorted_coverage.to(torch.float32)
-            distinct = float((acc.sorted_coverage > 0).sum())
+            distinct = float(obs.to_host((acc.sorted_coverage > 0).sum()))
             sparts = [SortedScanPart(
                 total_refs=acc.sorted_refs, distinct_pages=distinct,
                 min_capacity=int(acc.sorted_min_caps[i]), coverage=coverage,

@@ -28,6 +28,7 @@ from typing import Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.workload import Workload, locate
 
 __all__ = ["TraceEvent", "parse_jsonl", "to_jsonl", "iter_batches",
@@ -126,6 +127,7 @@ def iter_batches(events: Iterable[TraceEvent],
         yield batch
 
 
+@obs.traced("serving.compile")
 def compile_events(events: Sequence[TraceEvent],
                    keys: np.ndarray) -> Workload:
     """Compile one event batch into a Workload against ``keys``.

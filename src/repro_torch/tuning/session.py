@@ -46,6 +46,7 @@ from typing import (Callable, Dict, NamedTuple, Optional, Protocol, Sequence,
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.cam import CamEstimate
 from repro_torch.core.session import (CostSession, GridCandidate, SkippedCandidate,
                                 System)
@@ -682,14 +683,15 @@ class CamTuner:
                 by_key.setdefault(space.key(pt), pt)
             points = {kn: by_key[kn] for kn in profiles.knobs
                       if kn in by_key}
-        table = self.assemble_table(
-            profiles, points, splits=session.splits,
-            budget_bytes=system.memory_budget_bytes,
-            page_bytes=system.geom.page_bytes)
-        if self.policies:
-            # policy-as-a-knob: cross every (knob x split) cell with the
-            # candidate eviction policies — still ONE engine call below
-            table = table.cross_policies(self.policies)
+        with obs.span("cam.table"):
+            table = self.assemble_table(
+                profiles, points, splits=session.splits,
+                budget_bytes=system.memory_budget_bytes,
+                page_bytes=system.geom.page_bytes)
+            if self.policies:
+                # policy-as-a-knob: cross every (knob x split) cell with the
+                # candidate eviction policies — still ONE engine call below
+                table = table.cross_policies(self.policies)
         # ----- ONE engine call prices the whole table ---------------------
         sol = cost.engine.price(
             table, objective=objective if objective == "seconds" else "io")
@@ -908,6 +910,7 @@ class TuningSession:
         self.cost = CostSession(system)
         self.splits = tuple(splits)
 
+    @obs.traced("cam.tune")
     def tune(self, builder: IndexBuilder, workload: Workload,
              budget: Optional[float] = None, *,
              objective: Union[str, Callable] = "io",
