@@ -43,18 +43,57 @@ def locate(keys: np.ndarray, query_keys: np.ndarray) -> np.ndarray:
 
     Computed ONCE per (dataset, workload) pair; every estimation call reuses
     the cached result — this is where CAM's tuning-loop speedup starts.
+
+    The ranks are ``np.searchsorted(keys, query_keys, side="left")``
+    clamped to ``n - 1``.  Where the query keys' dtype differs from the
+    keys', ``searchsorted`` would copy the whole key file into the common
+    dtype on every call; where :func:`_thresholds` can answer the same
+    comparison in the keys' own dtype, the file is searched as it is.
     """
     keys = np.asarray(keys)
     query_keys = np.asarray(query_keys)
+    n = keys.shape[0]
     with obs.span("cam.locate"):
-        if obs.active():
-            # searchsorted converts the whole key file when the query keys'
-            # type differs from it (float64 queries into uint64 keys)
-            common = np.result_type(keys, query_keys)
-            if common != keys.dtype:
-                obs.count("locate.cast_bytes", keys.size * common.itemsize)
-        pos = np.searchsorted(keys, query_keys, side="left")
-        return np.minimum(pos, keys.shape[0] - 1).astype(np.int64)
+        common = np.promote_types(keys.dtype, query_keys.dtype)
+        if common == keys.dtype:
+            pos = np.searchsorted(keys, query_keys, side="left")
+        elif (mapped := _thresholds(keys, query_keys, common)) is not None:
+            thresholds, past = mapped
+            obs.count("locate.mapped_queries", query_keys.size)
+            pos = np.where(past, n,
+                           np.searchsorted(keys, thresholds, side="left"))
+        else:
+            # searchsorted copies the key file, and the queries unless they
+            # already have the common dtype, before it searches
+            obs.count("locate.cast_bytes", common.itemsize * (
+                keys.size
+                + (query_keys.size if query_keys.dtype != common else 0)))
+            pos = np.searchsorted(keys, query_keys, side="left")
+        return np.minimum(pos, n - 1).astype(np.int64)
+
+
+def _thresholds(keys: np.ndarray, query_keys: np.ndarray, common: np.dtype):
+    """Each query as the least key-dtype value that compares >= it.
+
+    ``searchsorted`` compares ``keys`` and ``query_keys`` in ``common``, the
+    float dtype both promote to.  For integer keys whose every value
+    ``common`` holds exactly (its mantissa spans the file's first and last
+    keys, so also every key between them), key ``k`` sorts below query
+    ``x`` exactly when ``k < ceil(x)``.  So the rank of ``x`` is the rank
+    of ``ceil(x)`` clipped to ``[keys[0], keys[-1]]``, except past the
+    last key, and for NaN, which sorts last: there it is ``n``.  Returns
+    ``(thresholds, past)`` in O(queries), or None where that does not hold.
+    """
+    if keys.dtype.kind not in "iu" or common.kind != "f" or not keys.size:
+        return None
+    exact = 1 << (np.finfo(common).nmant + 1)
+    if int(keys[0]) < -exact or int(keys[-1]) > exact:
+        return None
+    x = query_keys.astype(common, copy=False)
+    first, last = keys[[0, -1]].astype(common)
+    past = ~(x <= last)
+    t = np.ceil(np.maximum(np.where(past, last, x), first))
+    return t.astype(keys.dtype), past
 
 
 def subsample_indices(n: int, rate: float, seed: int = 0) -> np.ndarray:

@@ -60,8 +60,11 @@ The CAM path's spans (parents before their children):
 ``cam.h2d``                every blocking upload from host memory
 =========================  ==============================================
 
-Counters: ``locate.cast_bytes`` (the key file's bytes ``searchsorted``
-converts to a common type with the queries), ``sync.count`` (transfers
+Counters: ``locate.mapped_queries`` (queries ``locate`` answers in the
+key file's own dtype, where their dtype differs from it),
+``locate.cast_bytes`` (the bytes ``searchsorted`` allocates to convert the
+key file, and the queries, to their common dtype where ``locate`` cannot
+map the queries), ``sync.count`` (transfers
 that block on the card, both directions), ``d2h.bytes`` and ``h2d.bytes``.
 """
 from __future__ import annotations

@@ -4,7 +4,8 @@ On the CPU: the recorder records nothing while off; a ``torch.profiler``
 turns it on and sees its spans as host events that are no user
 annotations (so nothing mirrors them onto the device timeline); a tune
 and a serving run give the span tree the CAM path promises; ``locate``
-counts the key-file bytes ``searchsorted`` converts; and every output is
+counts the queries it maps into the key dtype, and elsewhere the key-file
+bytes ``searchsorted`` converts; and every output is
 the same with the recorder on and off.  One ``cuda``-marked case counts
 real transfers on the card:
 
@@ -237,16 +238,27 @@ def test_serving_span_tree():
 # Counters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("query_dtype", (np.float64, np.uint64))
-def test_locate_cast_bytes(query_dtype):
-    qk = KEYS[::97].astype(query_dtype)
+@pytest.mark.parametrize("query_dtype,shift", (
+    (np.float64, 10), (np.uint64, 10), (np.float64, 0)),
+    ids=("float64", "uint64", "float64-above-2**53"))
+def test_locate_cast_bytes(query_dtype, shift):
+    """Float queries into keys below 2**53 are mapped into the key dtype;
+    above it, ``searchsorted`` converts the key file, and that counts."""
+    keys = KEYS >> np.uint64(shift)
+    qk = keys[::97].astype(query_dtype)
     obs.enable()
-    pos = locate(KEYS, qk)
+    pos = locate(keys, qk)
     obs.disable()
     counters = obs.snapshot()["counters"]
-    assert counters == ({"locate.cast_bytes": KEYS.size * 8}
-                        if query_dtype is np.float64 else {})
-    np.testing.assert_array_equal(pos, locate(KEYS, qk))
+    if query_dtype is np.uint64:
+        assert counters == {}
+    elif keys[-1] <= 2**53:
+        assert counters == {"locate.mapped_queries": qk.size}
+    else:
+        assert counters == {"locate.cast_bytes": keys.size * 8}
+    np.testing.assert_array_equal(pos, locate(keys, qk))
+    np.testing.assert_array_equal(
+        pos, np.minimum(np.searchsorted(keys, qk), keys.size - 1))
     assert obs.snapshot()["counters"] == counters     # off: nothing added
 
 
