@@ -14,6 +14,10 @@ from cambench.work import WORK
 #: of the window), and the most steps it covers.
 TRACE_SECONDS = 2.0
 TRACE_STEPS = 32
+#: Whole cycles of the cell's traffic, after its first, that an untraced
+#: run's device trace covers where the cell reads an end-to-end metric
+#: from the device trace.
+E2E_CYCLES = 4
 
 
 class Deployment:
@@ -51,18 +55,31 @@ class Window:
     steps) run under the profiler with the CAM kernels' calls captured; the
     spans restart after it, so their means cover only the untraced rest of
     the window.
+
+    In an untraced run of a cell that reads an end-to-end metric from the
+    device trace (``ctx.device_e2e``), steps ``cycle`` to ``cycle * (1 +
+    E2E_CYCLES)`` run under the profiler: whole cycles of a traffic that
+    repeats every ``cycle`` steps, so the same work in every run.  The
+    profiler's start and its stop, which parses its events, take seconds:
+    the window's clock stands still while they run, so the window still
+    holds ``seconds`` of steps.
     """
 
-    def __init__(self, ctx, torch, span_labels):
+    def __init__(self, ctx, torch, span_labels, cycle: int = 0):
         self.ctx, self.torch = ctx, torch
         self.trace = bool(ctx.args.trace)
         self.span_labels = tuple(span_labels)
         self.spans = Spans(torch, ctx.device)
         self.kernels = KernelCalls()
         self.device_trace = DeviceTrace(torch)
+        self.cycle = int(cycle)
+        self.e2e_trace = (DeviceTrace(torch) if not self.trace and cycle
+                          and ctx.device_e2e else None)
+        self.e2e_steps = range(0)     # the steps the e2e trace covers
         self.latencies, self.failed, self.errors = [], 0, []
         self.seconds = 0.0
         self.counted = 0              # steps after the traced part
+        self.untraced_s = 0.0         # and their seconds
 
     def install_kernel_capture(self) -> None:
         from repro_torch.kernels import price_grid, profile_grid
@@ -78,9 +95,17 @@ class Window:
             self.install_kernel_capture()
             self.kernels.active = True
             self.device_trace.start()
-        t0 = t_trace = time.perf_counter()
+        e2e, e2e_on = self.e2e_trace, False
+        e2e_end = self.cycle * (1 + E2E_CYCLES)
+        t0 = t_trace = t_untraced = time.perf_counter()
+        paused = 0.0
         i = 0
-        while time.perf_counter() - t0 < self.ctx.args.seconds:
+        while time.perf_counter() - t0 - paused < self.ctx.args.seconds:
+            if e2e is not None and i == self.cycle:
+                p0 = time.perf_counter()
+                e2e.start()
+                paused += time.perf_counter() - p0
+                e2e_on = True
             s0 = time.perf_counter()
             try:
                 step(i)
@@ -98,16 +123,34 @@ class Window:
                 self.spans.seconds.clear()
                 self.spans.calls.clear()
                 self.counted = 0
+                t_untraced = time.perf_counter()
             else:
                 self.counted += 1
-        self.seconds = time.perf_counter() - t0
+            if e2e_on and i == e2e_end:
+                p0 = time.perf_counter()
+                e2e.stop()
+                paused += time.perf_counter() - p0
+                e2e_on = False
+        t_end = time.perf_counter()
+        self.seconds = t_end - t0 - paused
+        self.untraced_s = t_end - t_untraced
         if tracing:
             self.kernels.active = False
             self.device_trace.stop()
+        if e2e_on:
+            e2e.stop()
         if self.trace:
             self.device_trace.reduce(self.span_labels)
+        if e2e is not None and i > self.cycle:
+            self.e2e_steps = range(self.cycle, min(i, e2e_end))
+            e2e.reduce(self.span_labels)
         self.spans.restore()
         self.kernels.restore()
+
+    def untraced_steps(self) -> range:
+        """The steps after a traced run's traced part."""
+        n = len(self.latencies)
+        return range(n - self.counted, n)
 
     def readings(self, unit: str, extra_counts=None):
         if not self.trace:
@@ -116,7 +159,15 @@ class Window:
         counts.update(extra_counts or {})
         untraced = self.latencies[len(self.latencies) - self.counted:]
         return Readings(self.spans, self.device_trace, self.kernels, counts,
-                        self.ctx.device, untraced)
+                        self.ctx.device, untraced, self.untraced_s)
+
+    def e2e_readings(self, counts):
+        """What an end-to-end metric's reader reads from the untraced run's
+        device trace over ``e2e_steps`` (None without one)."""
+        if not self.e2e_steps:
+            return None
+        return Readings(self.spans, self.e2e_trace, self.kernels, counts,
+                        self.ctx.device, [])
 
 
 def checks_with_limits(numbers: dict, limits: dict):

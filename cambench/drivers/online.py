@@ -6,7 +6,8 @@ throwaway session on one batch of each op mix, then starts the served
 session on the warm segments.  Each step of the window compiles the next
 batch of the stream (``serving.trace.compile_events``) and ingests it
 (``ServingSession.ingest``: sketch, drift check, any retune and decision);
-the stream replays cyclically.
+the stream replays cyclically.  An untraced run also traces cycles 2 to 5
+of the stream on the device, for the chip time its events cost.
 
 The check replays the run through ``cambench.reference.online``: every
 batch's located positions and TV distance, every evaluation and switch,
@@ -16,6 +17,7 @@ first evaluations.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 
@@ -122,7 +124,7 @@ def run(ctx):
     settle(torch, ctx.device)
     setup_s = process_age()
 
-    win = Window(ctx, torch, SPANS)
+    win = Window(ctx, torch, SPANS, cycle=len(stream))
     batches = []
 
     def step(i: int):
@@ -140,17 +142,28 @@ def run(ctx):
     srv.tuning.tune_from_profiles = real_retune
     peak = memory_peak(torch, ctx.device)
     n_done = len(win.latencies)
-    events = sum(len(stream[i % len(stream)]) for i in range(n_done))
-    e2e = {"setup_s": setup_s, "events_per_s": events / win.seconds}
+
+    def events(steps):
+        return sum(len(stream[i % len(stream)]) for i in steps)
+
+    e2e = {"setup_s": setup_s}
+    t_check = time.perf_counter()
     program, locate_miss = program_run(initial, batches, profiles, inp)
     numbers = {"failed": float(win.failed), "locate_miss": locate_miss}
     numbers.update(check(ctx, inp, program))
     correct, checks = checks_with_limits(numbers, ctx.limits)
+    phases = {"setup_s": setup_s, "window_s": win.seconds,
+              "check_s": time.perf_counter() - t_check}
     return {"correct": correct and n_done > 0, "attempted": n_done,
             "failed": win.failed, "e2e": e2e, "checks": checks,
+            "phases": phases,
             "memory_peak_bytes": peak, "errors": win.errors,
             "readings": win.readings(
-                "batch", {"retune": win.spans.calls.get("retune", 0)})}
+                "batch", {"retune": win.spans.calls.get("retune", 0),
+                          "event": events(win.untraced_steps())}),
+            "e2e_readings": win.e2e_readings(
+                {"batch": len(win.e2e_steps),
+                 "event": events(win.e2e_steps)})}
 
 
 def program_run(initial, batches, profiles, inp):
@@ -159,9 +172,10 @@ def program_run(initial, batches, profiles, inp):
         return {kn: profs.counts[i] for i, kn in enumerate(profs.knobs)}
 
     out, miss, evals = [], 0.0, 0
+    ranks = [batch_parts(b) for b in inp.stream]     # each batch's, once
     init = answer_of(initial, counts_of(profiles[0]) if profiles else None)
     for j, wl, rep in batches:
-        miss += located_misses(wl, batch_parts(inp.stream[j]))
+        miss += located_misses(wl, ranks[j])
         d = None
         if rep.decision is not None:
             evals += 1

@@ -16,6 +16,7 @@ I/O against the least the reference finds.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 
@@ -84,7 +85,7 @@ def run(ctx):
         return out
 
     ts.cost.grid_profiles = keep_profiles
-    win = Window(ctx, torch, SPANS)
+    win = Window(ctx, torch, SPANS, cycle=len(inp.pool))
 
     def request(i: int, record: bool = True):
         entry = i % len(inp.pool)
@@ -116,13 +117,19 @@ def run(ctx):
     n_done = len(win.latencies)
     e2e = {"setup_s": setup_s, "tune_s": win.seconds / max(n_done, 1)}
     del ts, builder, system
+    t_check = time.perf_counter()
     numbers = compare(ctx, inp, answers,
                       [(e, answer_of(r)) for e, r in results], win.failed)
     correct, checks = checks_with_limits(numbers, ctx.limits)
+    phases = {"setup_s": setup_s, "window_s": win.seconds,
+              "check_s": time.perf_counter() - t_check}
     return {"correct": correct and n_done > 0, "attempted": n_done,
             "failed": win.failed, "e2e": e2e, "checks": checks,
+            "phases": phases,
             "memory_peak_bytes": peak, "errors": win.errors,
-            "readings": win.readings("request")}
+            "readings": win.readings("request"),
+            "e2e_readings": win.e2e_readings(
+                {"request": len(win.e2e_steps)})}
 
 
 # ---------------------------------------------------------------------------

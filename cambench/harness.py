@@ -195,15 +195,18 @@ class DeviceTrace:
 
 
 class Readings:
-    """What a per-layer metric's reader can read after a traced run."""
+    """What a metric's reader can read: a traced run's per-layer readings,
+    or the device trace an untraced run takes for an end-to-end metric."""
 
-    def __init__(self, spans, trace, kernels, counts, device, latencies):
+    def __init__(self, spans, trace, kernels, counts, device, latencies,
+                 seconds: float = 0.0):
         self.spans = spans
         self.trace = trace
         self.kernels = kernels
         self.counts = counts          # units of work: requests, batches, ...
         self.device = device
         self.latencies = latencies    # seconds a step, after the trace
+        self.seconds = seconds        # the window's seconds after the trace
 
     def latency_p90_ms(self):
         """90th percentile of the steps' latencies after the traced part."""
@@ -215,6 +218,20 @@ class Readings:
 
     def span_ms(self, label: str, per: str):
         return self.spans.mean_ms(label, self.counts.get(per, 0))
+
+    def rate(self, unit: str):
+        """Units of work a second over the window after the trace."""
+        n = self.counts.get(unit, 0)
+        if not n or self.seconds <= 0:
+            return None
+        return n / self.seconds
+
+    def busy_ms_per(self, unit: str, scale: float = 1.0):
+        """Device milliseconds per ``scale`` units of the traced work."""
+        n = self.counts.get(unit, 0)
+        if self.device != "cuda" or self.trace.busy_s <= 0 or not n:
+            return None
+        return 1e3 * self.trace.busy_s * scale / n
 
     def idle_pct(self):
         if self.device != "cuda" or self.trace.busy_s <= 0:

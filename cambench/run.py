@@ -10,7 +10,8 @@ correctness check runs once the window has closed and the program's state
 is freed.  The last line of standard output is one JSON object (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device`` and, with ``--trace 1``,
 ``breakdown``, then ``checks``: each compared number beside its limit, also
-printed as the last lines of standard error).
+printed as the last lines of standard error, after one ``phases:`` line with
+the seconds of set-up, of the window and of the check).
 
 ``--rehearse`` runs the cell on the CPU at a hundredth of its keys and
 queries with the kernels' plain versions: a test of the harness, never a
@@ -67,6 +68,10 @@ class Context:
         self.device = "cpu" if self.rehearse else "cuda"
         self.shrink = 100 if self.rehearse else 1
         self.seed = args.seed & ((1 << 64) - 1)
+        # a rehearsal has no device trace to read an end-to-end metric from
+        self.device_e2e = not self.rehearse and any(
+            m["source"] == "device_trace"
+            for m in cell_metrics(bench, args.workload, False))
 
     def rng(self, *stream):
         import numpy as np
@@ -112,6 +117,9 @@ def main(argv=None) -> int:
     for m in cell_metrics(bench, args.workload, bool(args.trace)):
         if args.trace:
             value = read_metric(m["name"], out["readings"])
+        elif m["source"] == "device_trace":
+            value = (read_metric(m["name"], out["e2e_readings"])
+                     if out.get("e2e_readings") else None)
         else:
             value = out["e2e"].get(m["name"])
         if value is not None:
@@ -132,6 +140,9 @@ def main(argv=None) -> int:
         return 3
     for err in out["errors"][:5]:
         print(f"failed request: {err}", file=sys.stderr)
+    print("phases: " + " ".join(f"{k}={v:.3f}"
+                                for k, v in out["phases"].items()),
+          file=sys.stderr)
     for k, (v, lim) in out["checks"].items():
         print(f"check {k} {v!r} limit {lim!r}", file=sys.stderr)
     sys.stderr.flush()

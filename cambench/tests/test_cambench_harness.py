@@ -25,13 +25,24 @@ def test_untraced_line(cell):
     assert list(line)[-1] == "checks"
     assert line["correct"] is True, line["checks"]
     assert line["attempted"] > 0 and line["failed"] == 0
-    assert set(line["metrics"]) == expected_metrics(cell, False)
+    # on the CPU there is no device trace: a metric read from it is left
+    # out, never given a number from the CPU
+    device = {m["name"] for m in bench()["end_to_end"]
+              if m["source"] == "device_trace"}
+    assert set(line["metrics"]) == expected_metrics(cell, False) - device
     for m in line["metrics"].values():
         assert m["value"] > 0
     assert line["device"]["platform"] == "cpu"
     # every compared number is printed beside its limit, last on stderr
-    tail = err.strip().splitlines()[-len(line["checks"]):]
+    lines = err.strip().splitlines()
+    tail = lines[-len(line["checks"]):]
     assert [t.split()[1] for t in tail] == list(line["checks"])
+    # and just before them, where the run's time went
+    phases = lines[-len(line["checks"]) - 1].split()
+    assert phases[0] == "phases:"
+    assert [p.split("=")[0] for p in phases[1:]] == ["setup_s", "window_s",
+                                                     "check_s"]
+    assert all(float(p.split("=")[1]) > 0 for p in phases[1:])
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -64,3 +75,30 @@ def test_same_seed_same_inputs():
 def test_unknown_workload_exits_nonzero():
     rc, line, _ = run_cell("no.such-cell", seed=1, trace=0)
     assert rc != 0 and line is None
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_device_e2e_trace_covers_whole_cycles(trace):
+    """An untraced run traces cycles 2 to 1 + E2E_CYCLES of its traffic for
+    the end-to-end device metric; a traced run leaves that to its own
+    trace.  On the CPU the device metric reads nothing."""
+    import time
+    import types
+
+    import torch
+
+    from cambench.drivers.common import E2E_CYCLES, Window
+
+    ctx = types.SimpleNamespace(
+        args=types.SimpleNamespace(trace=trace, seconds=0.5),
+        device="cpu", device_e2e=True)
+    win = Window(ctx, torch, ("step",), cycle=3)
+    win.run(lambda i: time.sleep(0.001))
+    assert len(win.latencies) > 3 * (1 + E2E_CYCLES)
+    assert win.seconds >= 0.5
+    readings = win.e2e_readings({"event": 7 * len(win.e2e_steps)})
+    if trace:
+        assert not win.e2e_steps and readings is None
+    else:
+        assert win.e2e_steps == range(3, 3 * (1 + E2E_CYCLES))
+        assert readings.busy_ms_per("event", 1000.0) is None

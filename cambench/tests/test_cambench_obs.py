@@ -49,11 +49,9 @@ def test_traced_line_reads_the_program(cell):
         if name in got:
             assert got[name]["value"] == 0.0
     if cell == "pgm.online-drift":
-        # float64 event keys into uint64 keys: each locate converts the
-        # key file (a hundredth of 20M keys, 8 bytes each)
-        mb = 200_000 * 8 / 1e6
-        per_batch = got["locate_cast_mb.online"]["value"] / mb
-        assert 3.0 <= per_batch <= 5.0
+        # float64 event keys into uint64 keys below 2**53: each query is
+        # mapped into the key dtype, and the key file is never converted
+        assert got["locate_cast_mb.online"]["value"] == 0.0
         assert got["locate_ms.online"]["value"] > 0
 
 
