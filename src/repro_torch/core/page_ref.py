@@ -11,7 +11,8 @@ host-side mixed-eps kernel shared with the ``kernels.profile_grid`` device
 path.
 
 * Point queries  — Eq. 12/13 via the (d, s) lookup table (O(eps + C_ipp) entries).
-* Range queries  — Eq. 14 via a difference array + prefix sum.
+* Range queries  — Eq. 14 via a difference array + prefix sum; with a
+  bound per endpoint (RMI) for a whole candidate grid at once.
 * Sorted (join)  — Theorem III.1 needs only (R, N); computed from interval
   unions with a cummax, no histogram required.
 * RMI            — per-leaf mixture: grouped by distinct leaf error bound.
@@ -36,6 +37,8 @@ __all__ = [
     "mixed_eps_class_eps",
     "range_page_refs",
     "range_page_refs_grid",
+    "range_page_spans",
+    "range_page_refs_bounds_grid",
     "page_intervals",
     "sorted_workload_rn",
     "sorted_workload_stats",
@@ -197,19 +200,53 @@ def range_page_refs_grid(
     num_pages: int,
     n: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eq. 14 histograms for an eps grid in one pass (cf. point)."""
+    """Eq. 14 histograms for an eps grid in one pass (cf. point): each
+    candidate's uniform spans through :func:`range_page_refs_bounds_grid`."""
     dev = lo_pos.device
     eps = eps_grid.to(dev).long()[:, None]                 # (K, 1)
     start = torch.clamp(lo_pos.long()[None, :] - 2 * eps, min=0) // c_ipp
     end = torch.clamp(hi_pos.long()[None, :] + 2 * eps, max=n - 1) // c_ipp
-    k = int(eps.shape[0])
+    counts = range_page_refs_bounds_grid(start, end, num_pages)
+    return counts, torch.sum((end - start + 1).float(), dim=1)
+
+
+def range_page_spans(lo_pos: np.ndarray, hi_pos: np.ndarray,
+                     eps_lo: np.ndarray, eps_hi: np.ndarray, c_ipp: int,
+                     n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Eq. 14's page span of each range when each end has its own bound.
+
+    ``eps_lo`` / ``eps_hi`` (K, Q) are candidate k's error bounds at the
+    lower and upper endpoint of range i (an RMI's leaf bound of each
+    endpoint's key).  Range i references every page from
+    ``floor(max(0, lo - 2 eps_lo) / C)`` to ``floor(min(n - 1, hi + 2
+    eps_hi) / C)`` once.  Returns ``(start, end)`` (K, Q) int64 pages.
+    """
+    lo = np.asarray(lo_pos, np.int64)[None, :]
+    hi = np.asarray(hi_pos, np.int64)[None, :]
+    start = np.maximum(lo - 2 * np.asarray(eps_lo, np.int64), 0) // c_ipp
+    end = np.minimum(hi + 2 * np.asarray(eps_hi, np.int64), n - 1) // c_ipp
+    return start, end
+
+
+def range_page_refs_bounds_grid(
+    start: torch.Tensor, end: torch.Tensor, num_pages: int
+) -> torch.Tensor:
+    """Eq. 14 histograms of K candidates from their (K, Q) page spans
+    (:func:`range_page_spans`, or the uniform spans of
+    :func:`range_page_refs_grid`), on the spans' device: one difference
+    array over all rows and one cumulative sum.
+
+    Returns counts (K, num_pages) float32 (integers: each range adds 1 to
+    every page of its span)."""
+    dev = start.device
+    k = int(start.shape[0])
     row = torch.arange(k, device=dev)[:, None] * (num_pages + 1)
     ones = torch.ones(start.numel(), device=dev)
-    diff = _segment_sum(ones, (row + start).reshape(-1), k * (num_pages + 1))
-    diff = diff - _segment_sum(ones, (row + end + 1).reshape(-1),
+    diff = _segment_sum(ones, (row + start.long()).reshape(-1),
+                        k * (num_pages + 1))
+    diff = diff - _segment_sum(ones, (row + end.long() + 1).reshape(-1),
                                k * (num_pages + 1))
-    counts = torch.cumsum(diff.reshape(k, num_pages + 1), dim=1)[:, :num_pages]
-    return counts, torch.sum((end - start + 1).float(), dim=1)
+    return torch.cumsum(diff.reshape(k, num_pages + 1), dim=1)[:, :num_pages]
 
 
 def point_page_refs_mixed_eps(

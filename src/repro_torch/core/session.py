@@ -417,6 +417,45 @@ def _merge_sorted_parts(parts: Sequence[SortedScanPart]) -> SortedScanPart:
         pinned_retouches=sum(p.pinned_retouches for p in parts))
 
 
+def mixed_profile(workload: Workload, profile_part, num_pages: int,
+                  device=DEFAULT_TORCH_DEVICE) -> PageRefProfile:
+    """A mixed workload's profile from its parts' (``profile_part(part)``).
+
+    Part histograms and request mass add; E[DAC] is the parts'
+    query-weighted mean; sorted parts merge into ``sorted_part`` (they are
+    priced by the policy-aware sorted-scan model, not the IRM fixed point)
+    and mutating parts into ``write_part``.
+    """
+    counts = torch.zeros((num_pages,), dtype=torch.float32, device=device)
+    total = 0.0
+    dac_mass = 0.0
+    sorted_parts = []
+    write_parts = []
+    for part in workload.parts:
+        prof = profile_part(part)
+        dac_mass += prof.expected_dac * part.n_queries
+        if prof.sorted_part is not None:
+            sorted_parts.append(prof.sorted_part)
+        if prof.write_part is not None:
+            write_parts.append(prof.write_part)
+        if not prof.sorted_stream:
+            counts = counts + prof.counts
+            total += prof.total_refs
+    e_dac = dac_mass / max(workload.n_queries, 1)
+    wp = _merge_write_parts(write_parts) if write_parts else None
+    if not sorted_parts:
+        return PageRefProfile(counts, total, e_dac, write_part=wp)
+    sp = _merge_sorted_parts(sorted_parts)
+    if total <= 0.0 and wp is None:
+        # every part is sorted: still a pure sorted stream
+        return PageRefProfile(
+            counts=None, total_refs=sp.total_refs, expected_dac=e_dac,
+            sorted_stream=True, distinct_pages=sp.distinct_pages,
+            min_capacity=sp.min_capacity, sorted_part=sp)
+    return PageRefProfile(counts, total, e_dac, sorted_part=sp,
+                          write_part=wp)
+
+
 def uniform_eps_profile(workload: Workload, eps: int, geom: CamGeometry,
                         n: Optional[int] = None,
                         write_amp: float = 1.0,
@@ -468,35 +507,12 @@ def uniform_eps_profile(workload: Workload, eps: int, geom: CamGeometry,
         return sorted_stream_profile(workload, geom, num_pages, eps=eps,
                                      device=device)
     if workload.kind == MIXED:
-        counts = torch.zeros((num_pages,), dtype=torch.float32, device=device)
-        total = 0.0
-        dac_mass = 0.0
-        sorted_parts = []
-        write_parts = []
-        for part in workload.parts:
-            prof = uniform_eps_profile(part, eps, geom, n,
-                                       write_amp=write_amp, device=device)
-            dac_mass += prof.expected_dac * part.n_queries
-            if prof.sorted_part is not None:
-                sorted_parts.append(prof.sorted_part)
-            if prof.write_part is not None:
-                write_parts.append(prof.write_part)
-            if not prof.sorted_stream:
-                counts = counts + prof.counts
-                total += prof.total_refs
-        e_dac = dac_mass / max(workload.n_queries, 1)
-        wp = _merge_write_parts(write_parts) if write_parts else None
-        if not sorted_parts:
-            return PageRefProfile(counts, total, e_dac, write_part=wp)
-        sp = _merge_sorted_parts(sorted_parts)
-        if total <= 0.0 and wp is None:
-            # every part is sorted: still a pure sorted stream
-            return PageRefProfile(
-                counts=None, total_refs=sp.total_refs, expected_dac=e_dac,
-                sorted_stream=True, distinct_pages=sp.distinct_pages,
-                min_capacity=sp.min_capacity, sorted_part=sp)
-        return PageRefProfile(counts, total, e_dac, sorted_part=sp,
-                              write_part=wp)
+        return mixed_profile(
+            workload,
+            lambda part: uniform_eps_profile(part, eps, geom, n,
+                                             write_amp=write_amp,
+                                             device=device),
+            num_pages, device)
     raise UnsupportedWorkloadError(workload.kind)
 
 
@@ -991,13 +1007,13 @@ class CostSession:
         for c in backed:
             if id(c) in mixed_rows:
                 entry = mixed_rows[id(c)]
-                if entry is None:       # point_ref_eps raised: skip recorded
+                if entry is None:       # routing raised: skip recorded
                     continue
-                counts_c, total_c, dac_c = entry
+                counts_c, total_c, dac_c, sp_c = entry
                 rows.append(counts_c)
                 totals.append(total_c)
                 dacs.append(dac_c)
-                sparts.append(None)
+                sparts.append(sp_c)
                 wparts.append(None)
                 knobs.append(c.knob)
                 sizes.append(c.size_bytes)
@@ -1078,56 +1094,116 @@ class CostSession:
     def _mixed_eps_rows(self, backed, wl: Workload, skipped,
                         batch_mixed_eps: bool,
                         executor: Optional[str] = None):
-        """Batched §V-C mixture histograms (the mixed-eps kernel).
+        """Batched §V-C rows of the routing candidates (RMI adapters).
 
-        Index-backed candidates exposing ``point_ref_eps`` (RMI adapters)
-        hand over per-query quantized leaf error bounds; the whole branch
-        grid then profiles in ONE grouped banded pass — references grouped
-        by LUT radius ACROSS candidates — instead of per-branch mixture
-        histograms.  The pass runs on the resolved profile executor:
-        ``host`` is the golden ``page_ref.point_page_refs_mixed_eps_grid``
-        bincount kernel, ``device`` the CUDA occupancy kernel
-        (``kernels.profile_grid``) whose histogram rows are card tensors
-        from birth.
+        Index-backed candidates exposing ``point_ref_eps`` (and, for
+        ranges, ``range_ref_eps``) hand over per-query quantized leaf
+        error bounds: every candidate routes first (span ``cam.route``),
+        then a point, range or sorted workload, or a mix of them, profiles
+        the whole grid in three passes that compose as the uniform-eps path
+        composes a mixed batch:
 
-        Returns ``{id(candidate): (counts_row, total, e_dac) | None}`` —
-        ``None`` marks a candidate whose routing raised (skip recorded).
+        * points: ONE grouped banded pass over every candidate's bounds —
+          references grouped by LUT radius ACROSS candidates — on the
+          resolved profile executor: ``host`` is the golden
+          ``page_ref.point_page_refs_mixed_eps_grid`` bincount kernel,
+          ``device`` the CUDA occupancy kernel (``kernels.profile_grid``)
+          whose rows are card tensors from birth;
+        * ranges: ONE difference-array pass over every candidate's
+          per-endpoint spans (``page_ref.range_page_refs_bounds_grid`` on
+          the session's device, whichever the executor), span
+          ``cam.profile.range``; a range's E[DAC] mass is its page count;
+        * sorted probes: windows that do not depend on the bound, so ONE
+          :class:`SortedScanPart`, its capacity premise read off the widest
+          observed window, serves every candidate.
+
+        Returns ``{id(candidate): (counts_row, total, e_dac, sorted_part)
+        | None}`` — ``None`` marks a candidate whose routing raised (skip
+        recorded); an empty dict leaves every candidate to its own
+        ``page_ref_profile``.
         """
-        if (not batch_mixed_eps or wl.kind != POINT
-                or wl.query_keys is None):
+        parts = wl.parts if wl.kind == MIXED else (wl,)
+        kinds = {p.kind for p in parts}
+        if not batch_mixed_eps or not kinds <= {POINT, RANGE, SORTED}:
             return {}
-        batchable = [c for c in backed if hasattr(c.index, "point_ref_eps")]
+        need = ("point_ref_eps",) + (("range_ref_eps",) if RANGE in kinds
+                                     else ())
+        batchable = [c for c in backed
+                     if all(hasattr(c.index, m) for m in need)]
         if not batchable:
             return {}
         geom = self.system.geom
-        out, ok, eps_rows, ok_dacs = {}, [], [], []
-        for c in batchable:
-            try:
-                eps_q, e_dac = c.index.point_ref_eps(wl, geom)
-            except UnsupportedWorkloadError as e:
-                skipped.append(SkippedCandidate(c.knob, str(e)))
-                out[id(c)] = None
+        out, ok, bounds = {}, [], []
+        with obs.span("cam.route"):
+            for c in batchable:
+                try:
+                    bounds.append([
+                        c.index.point_ref_eps(p, geom) if p.kind == POINT
+                        else c.index.range_ref_eps(p, geom)
+                        if p.kind == RANGE else None for p in parts])
+                except UnsupportedWorkloadError as e:
+                    skipped.append(SkippedCandidate(c.knob, str(e)))
+                    out[id(c)] = None
+                    continue
+                ok.append(c)
+        if not ok:
+            return out
+        num_pages = geom.num_pages(int(ok[0].index.n))
+        on_device = _resolve_profile_executor(executor,
+                                              self.device) == "device"
+        k = len(ok)
+        counts = None
+        totals = np.zeros(k)
+        dac_mass = np.zeros(k)
+        point_dacs = None
+        sorted_parts = []
+        for j, p in enumerate(parts):
+            if p.kind == SORTED:
+                sp = sorted_part_for(p, 0, geom, num_pages, self.device)
+                sorted_parts.append(sp)
+                dac_mass += sp.total_refs
                 continue
-            ok.append(c)
-            eps_rows.append(np.asarray(eps_q, np.int64))
-            ok_dacs.append(float(e_dac))
-        if ok:
-            num_pages = geom.num_pages(int(ok[0].index.n))
-            if _resolve_profile_executor(executor, self.device) == "device":
-                from repro_torch.kernels import profile_grid as _device_profile
+            if p.kind == POINT:
+                eps_rows = np.stack([np.asarray(b[j][0], np.int64)
+                                     for b in bounds])
+                point_dacs = np.asarray([float(b[j][1]) for b in bounds])
                 with obs.span("cam.profile.histogram"):
-                    counts_b, totals_b = \
-                        _device_profile.point_page_refs_mixed_eps_grid(
-                            wl.positions, np.stack(eps_rows), geom.c_ipp,
-                            num_pages, device=self.device)
+                    if on_device:
+                        from repro_torch.kernels import \
+                            profile_grid as _device_profile
+                        c_p, t_p = \
+                            _device_profile.point_page_refs_mixed_eps_grid(
+                                p.positions, eps_rows, geom.c_ipp,
+                                num_pages, device=self.device)
+                    else:
+                        c_p, t_p = page_ref.point_page_refs_mixed_eps_grid(
+                            p.positions, eps_rows, geom.c_ipp, num_pages)
+                dac_mass += point_dacs * p.n_queries
             else:
-                with obs.span("cam.profile.histogram"):
-                    counts_b, totals_b = \
-                        page_ref.point_page_refs_mixed_eps_grid(
-                            wl.positions, np.stack(eps_rows), geom.c_ipp,
-                            num_pages)
-            for i, c in enumerate(ok):
-                out[id(c)] = (counts_b[i], float(totals_b[i]), ok_dacs[i])
+                with obs.span("cam.profile.range"):
+                    start, end = page_ref.range_page_spans(
+                        p.positions, p.hi_positions,
+                        np.stack([b[j][0] for b in bounds]),
+                        np.stack([b[j][1] for b in bounds]), geom.c_ipp,
+                        int(ok[0].index.n))
+                    t_p = (end - start + 1).sum(axis=1).astype(np.float64)
+                    c_p = page_ref.range_page_refs_bounds_grid(
+                        *obs.to_device(np.stack([start, end]).astype(
+                            np.int32), self.device), num_pages)
+                    if not on_device:   # the host point rows are numpy
+                        c_p = obs.to_host(c_p)
+                dac_mass += t_p
+            counts = c_p if counts is None else counts + c_p
+            totals = totals + t_p
+        if counts is None:          # every part sorted: an empty IRM part
+            counts = torch.zeros((k, num_pages), dtype=torch.float32,
+                                 device=self.device)
+        # a point workload keeps each candidate's E[DAC] as routed
+        dacs = (point_dacs if wl.kind == POINT
+                else dac_mass / max(wl.n_queries, 1))
+        sp = _merge_sorted_parts(sorted_parts) if sorted_parts else None
+        for i, c in enumerate(ok):
+            out[id(c)] = (counts[i], float(totals[i]), float(dacs[i]), sp)
         return out
 
     def _sorted_grid(self, feasible, skipped, wl: Workload,

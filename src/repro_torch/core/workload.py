@@ -113,7 +113,10 @@ class Workload:
     positions:     point → true ranks; range → lower-bound ranks;
                    sorted → per-probe window-lo positions.
     hi_positions:  range → upper-bound ranks; sorted → window-hi positions.
-    query_keys:    original query keys (needed by routing indexes, e.g. RMI).
+    query_keys:    original query keys (needed by routing indexes, e.g. RMI);
+                   range → the lower endpoints' keys.
+    hi_query_keys: range → the upper endpoints' keys (an RMI routes each
+                   endpoint to its own leaf).
     n:             size of the indexed key file (defines the page count).
     parts:         sub-workloads of a mixed workload.
     base_queries:  pre-sampling |Q| (compulsory-miss scaling of CAM-x).
@@ -126,6 +129,7 @@ class Workload:
     n: Optional[int] = None
     parts: Tuple["Workload", ...] = ()
     base_queries: Optional[int] = None
+    hi_query_keys: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if self.kind not in _KINDS:
@@ -150,10 +154,18 @@ class Workload:
 
     @classmethod
     def range_scan(cls, lo_positions: np.ndarray, hi_positions: np.ndarray,
-                   *, n: Optional[int] = None) -> "Workload":
-        """Range scans [lo, hi] given rank bounds."""
+                   *, n: Optional[int] = None,
+                   query_keys: Optional[np.ndarray] = None,
+                   hi_query_keys: Optional[np.ndarray] = None) -> "Workload":
+        """Range scans [lo, hi] given rank bounds, and optionally the keys
+        of both endpoints (``query_keys`` the lower, ``hi_query_keys`` the
+        upper), which a routing index needs to find each end's leaf."""
         return cls(RANGE, positions=np.asarray(lo_positions, np.int64),
-                   hi_positions=np.asarray(hi_positions, np.int64), n=n)
+                   hi_positions=np.asarray(hi_positions, np.int64), n=n,
+                   query_keys=None if query_keys is None
+                   else np.asarray(query_keys),
+                   hi_query_keys=None if hi_query_keys is None
+                   else np.asarray(hi_query_keys))
 
     @classmethod
     def sorted_stream(cls, window_lo: np.ndarray, window_hi: np.ndarray,
@@ -249,6 +261,7 @@ class Workload:
                 query_keys=_cat([p.query_keys for p in group]),
                 n=ns.pop() if ns else None,
                 base_queries=base,
+                hi_query_keys=_cat([p.hi_query_keys for p in group]),
             ))
         return merged[0] if len(merged) == 1 else cls.mixed(*merged)
 
@@ -366,6 +379,7 @@ class Workload:
             positions=take(self.positions),
             hi_positions=take(self.hi_positions),
             query_keys=take(self.query_keys),
+            hi_query_keys=take(self.hi_query_keys),
             base_queries=self.base_queries if self.base_queries is not None
             else self.n_queries,
         )

@@ -16,7 +16,8 @@ here for the first time: eps is its knob, same as PGM's.
 
 RMI has no global bound; its profile is the §V-C workload-weighted mixture of
 per-leaf Eq. 12 patterns with leaf error bounds quantized up to powers of two
-(bounds LUT instantiations at ~log2(max_eps), windows stay conservative).
+(bounds LUT instantiations at ~log2(max_eps), windows stay conservative); a
+range routes both endpoints and widens each end by its own leaf's bound.
 """
 from __future__ import annotations
 
@@ -28,11 +29,13 @@ import numpy as np
 from repro_torch.core import dac as dac_mod
 from repro_torch.core import page_ref
 from repro_torch.core.cam import CamGeometry
+from repro_torch import obs
 from repro_torch.core.session import (DEFAULT_TORCH_DEVICE, PageRefProfile,
-                                      UnsupportedWorkloadError,
+                                      UnsupportedWorkloadError, mixed_profile,
                                       sorted_stream_profile,
                                       uniform_eps_profile)
-from repro_torch.core.workload import POINT, SORTED, Workload, locate
+from repro_torch.core.workload import (MIXED, POINT, RANGE, SORTED, Workload,
+                                       locate)
 from repro_torch.index import pgm as pgm_mod
 from repro_torch.index import radixspline as rs_mod
 from repro_torch.index import rmi as rmi_mod
@@ -206,11 +209,13 @@ class RMIAdapter:
     index: rmi_mod.RMIIndex
     family: str = "rmi"
     # Routing memo: (id(query_keys), c_ipp, strategy) -> (keys ref, eps row,
-    # E[DAC]).  Routing depends only on (index, workload), yet a tuning loop
-    # re-prices the same workload under many (budget, policy) Systems; the
-    # strong reference in the value keeps the id valid for the entry's
-    # lifetime, and the FIFO bound keeps a long-lived adapter from pinning
-    # arbitrary query arrays.  Excluded from eq/repr (pure cache).
+    # E[DAC]) for points, ("range", id(lo keys), id(hi keys)) -> (both refs,
+    # eps_lo, eps_hi) for ranges.  Routing depends only on (index, workload),
+    # yet a tuning loop re-prices the same workload under many (budget,
+    # policy) Systems; the strong references in the value keep the ids
+    # valid for the entry's lifetime, and the FIFO bound keeps a long-lived
+    # adapter from pinning arbitrary query arrays.  Excluded from eq/repr
+    # (pure cache).
     _ref_cache: dict = dataclasses.field(default_factory=dict, init=False,
                                          repr=False, compare=False)
     _REF_CACHE_MAX = 4
@@ -236,6 +241,11 @@ class RMIAdapter:
         return {"branch": {"value": self.index.branch, "kind": "fanout",
                            "tunable": True, "grid": DEFAULT_BRANCH_GRID}}
 
+    def _remember(self, key, value):
+        while len(self._ref_cache) >= self._REF_CACHE_MAX:
+            self._ref_cache.pop(next(iter(self._ref_cache)))
+        self._ref_cache[key] = value
+
     def point_ref_eps(self, workload: Workload, geom: CamGeometry):
         """Per-query quantized leaf error bounds + E[DAC] (§V-C inputs).
 
@@ -256,33 +266,79 @@ class RMIAdapter:
             return hit[1], hit[2]
         index = self.index
         leaf = index.route(workload.query_keys)
+        obs.count("route.keys", leaf.shape[0])
         eps_q = quantize_eps(index.leaf_eps[leaf])
         weights = np.bincount(leaf, minlength=index.branch).astype(np.float64)
         weights /= max(weights.sum(), 1.0)
         e_dac = float(dac_mod.expected_dac_rmi(
             index.leaf_eps, weights, geom.c_ipp, geom.strategy))
-        while len(self._ref_cache) >= self._REF_CACHE_MAX:
-            self._ref_cache.pop(next(iter(self._ref_cache)))
-        self._ref_cache[key] = (workload.query_keys, eps_q, e_dac)
+        self._remember(key, (workload.query_keys, eps_q, e_dac))
         return eps_q, e_dac
+
+    def range_ref_eps(self, workload: Workload, geom: CamGeometry):
+        """Quantized leaf error bounds of each range's two endpoints.
+
+        Each endpoint key routes to its own leaf, so a range's lower and
+        upper ends carry their own bounds ``e(k) = 2^ceil(log2 max(
+        leaf_eps[leaf(k)], 1))``; Eq. 14 widens each end by twice its own
+        bound (``page_ref.range_page_spans``).  Returns ``(eps_lo,
+        eps_hi)``, memoized like :meth:`point_ref_eps`.
+        """
+        lo_keys, hi_keys = workload.query_keys, workload.hi_query_keys
+        if workload.kind != RANGE or lo_keys is None or hi_keys is None:
+            raise UnsupportedWorkloadError(
+                workload.kind,
+                detail="RMI profiling of ranges needs both endpoints' keys "
+                       "(query_keys, hi_query_keys) to route them")
+        key = ("range", id(lo_keys), id(hi_keys))
+        hit = self._ref_cache.get(key)
+        if hit is not None:
+            return hit[2], hit[3]
+        index = self.index
+        eps_lo = quantize_eps(index.leaf_eps[index.route(lo_keys)])
+        eps_hi = quantize_eps(index.leaf_eps[index.route(hi_keys)])
+        obs.count("route.keys", eps_lo.shape[0] + eps_hi.shape[0])
+        self._remember(key, (lo_keys, hi_keys, eps_lo, eps_hi))
+        return eps_lo, eps_hi
 
     def page_ref_profile(self, workload: Workload, geom: CamGeometry,
                          device=DEFAULT_TORCH_DEVICE) -> PageRefProfile:
         """§V-C mixture: per-query leaf error bounds, quantized to pow2.
 
-        Sorted probe streams carry explicit position windows, so they need
-        no routing — RMI prices them through the same shared sorted-stream
-        profile as the uniformly error-bounded families (the capacity
-        premise read off the widest observed window).
+        Points take Eq. 12/13 at their own leaf's bound; a range takes
+        Eq. 14 with each endpoint's own bound, and references each page of
+        its span once (its E[DAC] mass is the page count).  Sorted probe
+        streams carry explicit position windows, so they need no routing —
+        RMI prices them through the same shared sorted-stream profile as
+        the uniformly error-bounded families (the capacity premise read off
+        the widest observed window).  A mixed workload composes its parts
+        as the uniform-eps profile does.
         """
+        num_pages = geom.num_pages(self.index.n)
         if workload.kind == SORTED:
-            return sorted_stream_profile(workload, geom,
-                                         geom.num_pages(self.index.n),
+            return sorted_stream_profile(workload, geom, num_pages,
                                          device=device)
-        eps_q, e_dac = self.point_ref_eps(workload, geom)
+        if workload.kind == MIXED:
+            return mixed_profile(
+                workload,
+                lambda part: self.page_ref_profile(part, geom, device),
+                num_pages, device)
+        if workload.kind == RANGE:
+            with obs.span("cam.route"):
+                eps_lo, eps_hi = self.range_ref_eps(workload, geom)
+            start, end = page_ref.range_page_spans(
+                workload.positions, workload.hi_positions, eps_lo[None, :],
+                eps_hi[None, :], geom.c_ipp, self.index.n)
+            spans = obs.to_device(np.stack([start, end]).astype(np.int32),
+                                  device)
+            counts = page_ref.range_page_refs_bounds_grid(*spans, num_pages)
+            total = float((end - start + 1).sum())
+            return PageRefProfile(counts[0], total,
+                                  total / max(workload.n_queries, 1))
+        with obs.span("cam.route"):
+            eps_q, e_dac = self.point_ref_eps(workload, geom)
         counts, total = page_ref.point_page_refs_mixed_eps(
-            workload.positions, eps_q, geom.c_ipp,
-            geom.num_pages(self.index.n), device=device)
+            workload.positions, eps_q, geom.c_ipp, num_pages, device=device)
         return PageRefProfile(counts, float(total), e_dac)
 
     def window(self, query_keys: np.ndarray):

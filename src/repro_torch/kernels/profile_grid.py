@@ -230,26 +230,53 @@ def profile_grid(keys: torch.Tensor, pages: torch.Tensor, lut: torch.Tensor,
                                       pad=pad))
 
 
-def _lut_stack(class_eps, c_ipp: int, max_radius: int
-               ) -> Tuple[np.ndarray, np.ndarray]:
+#: Most LUT row blocks :func:`_lut_rows` keeps (oldest dropped first).
+_LUT_ROWS_MAX = 64
+#: (eps, c_ipp, max_radius, device) -> that class's rows on the device.
+_LUT_ROWS: dict = {}
+
+
+def _lut_rows(eps: int, c_ipp: int, max_radius: int,
+              device) -> torch.Tensor:
+    """One eps class's Eq. 12 LUT rows centered on the max radius, on
+    ``device``: (C_ipp, 2D+1) float32, zero outside the class's band.
+
+    A row block depends only on (eps, C_ipp, D), so it is uploaded once and
+    kept: a serving loop profiles every batch with the same few classes,
+    and re-uploading the LUT from host memory each call would cost the card
+    time that grows with the widest band."""
+    key = (int(eps), int(c_ipp), int(max_radius), torch.device(device))
+    rows = _LUT_ROWS.get(key)
+    if rows is None:
+        radius = page_ref.lut_radius(eps, c_ipp)
+        off = max_radius - radius
+        block = np.zeros((c_ipp, 2 * max_radius + 1), np.float32)
+        block[:, off:off + 2 * radius + 1] = page_ref._point_lut_np(eps,
+                                                                    c_ipp)
+        rows = obs.to_device(block, device)
+        while len(_LUT_ROWS) >= _LUT_ROWS_MAX:
+            _LUT_ROWS.pop(next(iter(_LUT_ROWS)))
+        _LUT_ROWS[key] = rows
+    return rows
+
+
+def _lut_stack(class_eps, c_ipp: int, max_radius: int, device
+               ) -> Tuple[torch.Tensor, np.ndarray]:
     """Stack per-class Eq. 12 LUTs key-major, centered on the max radius.
 
     Centering reproduces the host kernel's ``base + (D - D_c) + d'`` offset
     arithmetic: class c's width-``2*D_c+1`` band sits at columns
     ``[D - D_c, D + D_c]`` of the shared width-``2*D+1`` band, and all
     other columns are zero — so one uniform ``page + d`` target rule serves
-    every class.  Returns ``(lut (n_c * C_ipp, 2D+1), bands (n_c, 2))``.
+    every class.  Returns ``(lut (n_c * C_ipp, 2D+1) on device, bands
+    (n_c, 2))``; the rows come from :func:`_lut_rows`.
     """
-    width = 2 * max_radius + 1
-    stack = np.zeros((len(class_eps) * c_ipp, width), np.float32)
+    blocks = [_lut_rows(eps, c_ipp, max_radius, device) for eps in class_eps]
     bands = np.zeros((len(class_eps), 2), np.int32)
     for ci, eps in enumerate(class_eps):
-        radius = page_ref.lut_radius(eps, c_ipp)
-        off = max_radius - radius
-        stack[ci * c_ipp:(ci + 1) * c_ipp, off:off + 2 * radius + 1] = \
-            page_ref._point_lut_np(eps, c_ipp)
-        bands[ci] = (off, off + 2 * radius)
-    return stack, bands
+        off = max_radius - page_ref.lut_radius(eps, c_ipp)
+        bands[ci] = (off, 2 * max_radius - off)
+    return (blocks[0] if len(blocks) == 1 else torch.cat(blocks)), bands
 
 
 def point_page_refs_mixed_eps_grid(
@@ -288,12 +315,12 @@ def point_page_refs_mixed_eps_grid(
     # dense-rank the (possibly sparse) codes into lut row groups
     dense = np.searchsorted(present, codes.astype(np.int64)).astype(np.int32)
     keys = dense.reshape(k, q_n) * np.int32(c_ipp) + slot[None, :]
-    lut, bands = _lut_stack(class_eps, c_ipp, max_radius)
+    lut, bands = _lut_stack(class_eps, c_ipp, max_radius, device)
 
     def up(a):
         return obs.to_device(a, device)
 
-    padded = profile_grid(up(keys), up(page), up(lut), up(bands),
+    padded = profile_grid(up(keys), up(page), lut, up(bands),
                           c_ipp=c_ipp, pad=pad)
     counts = padded[:, max_radius:max_radius + num_pages]
     return counts, _np64(torch.sum(counts, dim=1))

@@ -39,10 +39,14 @@ The CAM path's spans (parents before their children):
 ``cam.locate``             ``core.workload.locate`` (``searchsorted``)
 ``cam.tune``               ``TuningSession.tune``, a tune request's root
 ``cam.profile``            ``CostSession.grid_profiles``
+``cam.route``              RMI routing: every candidate's leaf bounds of
+                           the point keys and both range endpoints
 ``cam.profile.upload``     positions copied to the card
 ``cam.profile.histogram``  the histogram pass (banded matmul, difference
                            arrays, sorted-stream statistics,
                            ``profile_grid``)
+``cam.profile.range``      the range rows of a routing grid, each end at
+                           its own leaf's bound
 ``cam.table``              ``PriceTable.from_profiles`` and
                            ``cross_policies``
 ``cam.price``              ``PricingEngine.price``
@@ -64,8 +68,10 @@ Counters: ``locate.mapped_queries`` (queries ``locate`` answers in the
 key file's own dtype, where their dtype differs from it),
 ``locate.cast_bytes`` (the bytes ``searchsorted`` allocates to convert the
 key file, and the queries, to their common dtype where ``locate`` cannot
-map the queries), ``sync.count`` (transfers
-that block on the card, both directions), ``d2h.bytes`` and ``h2d.bytes``.
+map the queries), ``route.keys`` (keys an RMI routed to a leaf, point
+keys and range endpoints, summed over the candidates), ``sync.count``
+(transfers that block on the card, both directions), ``d2h.bytes`` and
+``h2d.bytes``.
 """
 from __future__ import annotations
 

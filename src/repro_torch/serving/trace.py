@@ -134,7 +134,8 @@ def compile_events(events: Sequence[TraceEvent],
 
     Point events locate through the same ``searchsorted`` path as
     ``Workload.from_keys`` (query keys are kept so routing indexes — RMI —
-    can profile the batch); range and sorted events locate both bounds.
+    can profile the batch); range and sorted events locate both bounds,
+    and a range part keeps both endpoints' keys for the same reason.
     Mutating events (insert/update/delete) locate their target key the same
     way and compile into the matching write parts.  Within every compiled
     part the events keep their arrival order (the per-op grouping is a
@@ -160,7 +161,8 @@ def compile_events(events: Sequence[TraceEvent],
         lo, hi = np.asarray(range_bounds).T
         lo_pos = locate(keys, lo)
         hi_pos = np.maximum(locate(keys, hi), lo_pos)
-        parts.append(Workload.range_scan(lo_pos, hi_pos, n=n))
+        parts.append(Workload.range_scan(lo_pos, hi_pos, n=n, query_keys=lo,
+                                         hi_query_keys=hi))
     if sorted_bounds:
         lo, hi = np.asarray(sorted_bounds).T
         lo_pos = locate(keys, lo)

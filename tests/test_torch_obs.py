@@ -27,7 +27,7 @@ from repro_torch.engine import PricingEngine
 from repro_torch.serving import ServingConfig, ServingSession
 from repro_torch.serving import trace as tr
 from repro_torch.tuning.session import (AnalyticSizeModel, PGMBuilder,
-                                        TuningSession)
+                                        RMIBuilder, TuningSession)
 
 #: The benchmark harness's own span labels: no program span may take one.
 HARNESS_LABELS = {"locate", "tune", "profile", "price", "compile", "sketch",
@@ -36,6 +36,7 @@ N_KEYS = 100_000
 KEYS = np.sort(np.random.default_rng(0).integers(
     0, 2**62, N_KEYS, dtype=np.uint64))
 GRID = {"eps": (8, 32, 128, 512)}
+RMI_GRID = {"branch": (16, 64, 256)}
 SEGMENTS = [
     {"events": 1024, "mix": (0.8, 0.2, 0.0), "hot_center": 0.2,
      "range_width": 16},
@@ -98,10 +99,15 @@ def _tune(ts, seed=1, queries=5000):
                    policies=("lru", "fifo", "lfu"))
 
 
-def _serve():
+def _serve(family="pgm"):
     ts = _session()
-    srv = ServingSession(ts, PGMBuilder(KEYS), KEYS, overrides=GRID,
-                         size_model=AnalyticSizeModel(_size),
+    if family == "pgm":
+        builder, overrides = PGMBuilder(KEYS), GRID
+        size_model = AnalyticSizeModel(_size)
+    else:
+        builder, overrides, size_model = RMIBuilder(KEYS), RMI_GRID, None
+    srv = ServingSession(ts, builder, KEYS, overrides=overrides,
+                         size_model=size_model,
                          config=ServingConfig(batch_size=256,
                                               window_chunks=2,
                                               drift_threshold=0.1,
@@ -232,6 +238,38 @@ def test_serving_span_tree():
     assert under["serving.sketch"] == len(reports)
     assert under["serving.retune"] == sum(r.decision is not None
                                           for r in reports) > 0
+
+
+@pytest.mark.parametrize("family", ("rmi", "pgm"))
+def test_routing_spans_under_each_batch(family):
+    """An RMI grid routes and profiles each batch's ranges inside the
+    batch's ``cam.profile``: one ``cam.route`` and one ``cam.profile.range``
+    a batch, and ``route.keys`` counts every point key and both keys of
+    every range once a candidate.  A PGM grid routes nothing."""
+    obs.enable()
+    _, reports = _serve(family)
+    obs.disable()
+    records = obs.records()
+    snap = obs.snapshot()
+    routing = {"cam.route", "cam.profile.range"}
+    if family == "pgm":
+        assert not routing & {r.name for r in records}
+        assert "route.keys" not in snap["counters"]
+        return
+    by_id, parent_of = _tree(records)
+    batches = {r.request for r in records if r.name == "serving.ingest"}
+    assert len(batches) == len(reports)
+    for name in routing:
+        under = [r for r in records if r.name == name
+                 and r.request in batches]
+        assert sorted(r.request for r in under) == sorted(batches), name
+        assert {parent_of[r.id] for r in under} == {"cam.profile"}
+        assert {by_id[r.parent].request for r in under} == batches
+    events = tr.synthetic_drifting_trace(KEYS, SEGMENTS, seed=3)
+    keys = sum(2 if e.op == "range" else e.op == "point" for e in events)
+    assert snap["counters"]["route.keys"] == len(RMI_GRID["branch"]) * keys
+    assert snap["counters_by_span"]["cam.route"]["route.keys"] == \
+        snap["counters"]["route.keys"]
 
 
 # ---------------------------------------------------------------------------

@@ -128,6 +128,16 @@ def _assert_workloads_equal(got, want):
                                                 want.n_queries)
     for f in ("positions", "hi_positions", "query_keys"):
         g, w = getattr(got, f), getattr(want, f)
+        if f == "query_keys" and got.kind == "range":
+            # the port keeps both endpoints' keys of a range (an RMI routes
+            # each end), which the JAX package drops: they locate to the
+            # range's own bounds
+            assert w is None and g is not None
+            np.testing.assert_array_equal(ttr.locate(KEYS, g), got.positions)
+            np.testing.assert_array_equal(
+                np.maximum(ttr.locate(KEYS, got.hi_query_keys), got.positions),
+                got.hi_positions)
+            continue
         assert (g is None) == (w is None), f
         if g is not None:
             np.testing.assert_array_equal(g, w)
